@@ -1,0 +1,324 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch / CUDA port (racinglmpc_tpu_torch).
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
+``build/kernels/``), then:
+
+1. prints the card (nvidia-smi name and power limit), the torch / CUDA
+   versions, the kernel build time and the TF32 flags;
+2. drives the main path at full width -- the batch-256 LMPC control step
+   (``SolverConfig.throughput()``, ``LMPCConfig(max_laps=12, max_pts=1024,
+   model_pts=512)``, N=14) seeded from one PID stage of the port's own
+   ``run_experiment(stages="pid", batch=1)`` -- for a warm-up chunk and a
+   timed chunk of 50 steps, with the launch counters of the three kernels
+   reset just before and read just after (each must be > 0);
+3. holds each kernel against its plain PyTorch version on the card at the
+   main path's shapes (the FTOCPs, lap store and plant states of the batch
+   just driven): rollout |dx| < 1e-4, sys-ID |dA|,|dB|,|dC| < 1e-3 (also on
+   a ragged store with an empty lap), ADMM |dx| < 3e-2 after 16 fixed
+   iterations, >= 90% solved at tolerance, and a forced rho-escalation
+   rescue with the same rescued flags and iteration counts as the plain
+   version; times each (CUDA events, median of 20 launches after warm-up);
+4. runs the closed loop ``run_experiment(stages="pid,lmpc",
+   n_lmpc_laps=4, batch=4)`` and requires every lap finished, no NaN and a
+   first->last lap improvement above 15%;
+5. prints one JSON line per kernel summary, the card line, and as the last
+   line ``{"ok": true, "device": {...}}``.
+
+It exits non-zero, printing no result, when no CUDA device is present or
+any phase fails. It imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+FAILED = []
+H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
+H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
+
+
+def check(name, ok, detail=""):
+    print(f"[chip_smoke] {'PASS' if ok else 'FAIL'} {name} {detail}",
+          flush=True)
+    if not ok:
+        FAILED.append(name)
+
+
+def bound_ms(nbytes: float, ops: float):
+    t_b = nbytes / H100_BYTES_PER_S * 1e3
+    t_o = ops / H100_F32_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def time_ms(torch, fn, reps=20, warm=3):
+    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warm`` calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def nbytes(*ts):
+    return float(sum(t.numel() * t.element_size() for t in ts))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+
+    from racinglmpc_tpu_torch.models import sysid
+    from racinglmpc_tpu_torch.ops import (cuda_build, cuda_qp, cuda_rollout,
+                                          cuda_sysid)
+    from racinglmpc_tpu_torch.ops import qp as qp_mod
+    from racinglmpc_tpu_torch.runtime import experiment as exp
+    from racinglmpc_tpu_torch.runtime import main_path
+    from racinglmpc_tpu_torch.utils.config import (LMPCConfig, SimConfig,
+                                                   SolverConfig)
+
+    dev = "cuda"
+    B, STEPS = 256, 50
+    counters = (cuda_qp.launches, cuda_sysid.launches, cuda_rollout.launches)
+
+    # ---- phase 1: device, build ------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(f"[chip_smoke] card: {smi}")
+    print(f"[chip_smoke] python {sys.version.split()[0]} torch "
+          f"{torch.__version__} cuda {torch.version.cuda}")
+    build = cuda_build.build()
+    print(f"[chip_smoke] kernel build {build.seconds:.1f} s -> {build.path}")
+    for line in build.log.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            print(f"[chip_smoke]   {line.strip()}")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    print(f"[chip_smoke] tf32 matmul/cudnn: {tf32}")
+    check("tf32_off", tf32 == (False, False))
+
+    # ---- main path: PID seed stage, batch-256 LMPC step --------------------
+    for c in counters:
+        c.reset()
+    t0 = time.time()
+    mp, state, plant, pid = main_path.setup(B, device=dev)
+    torch.cuda.synchronize()
+    print(f"[chip_smoke] PID seed stage + seeding: {time.time() - t0:.1f} s, "
+          f"{int(pid.pid.steps[0])} steps, rollout launches "
+          f"{cuda_rollout.launches.n}")
+    check("pid_stage_used_rollout_kernel", cuda_rollout.launches.n > 0)
+    cfg, trk, table, vp, ctrl = mp.cfg, mp.trk, mp.table, mp.vp, mp.ctrl
+
+    for c in counters:
+        c.reset()
+    t0 = time.time()
+    state, plant = main_path.run_chunk(mp, state, plant, STEPS)[:2]
+    torch.cuda.synchronize()
+    print(f"[chip_smoke] warm-up chunk ({STEPS} steps): "
+          f"{time.time() - t0:.2f} s")
+    t0 = time.time()
+    state, plant, iters, rej, unc = main_path.run_chunk(mp, state, plant,
+                                                        STEPS)
+    torch.cuda.synchronize()
+    dt_chunk = time.time() - t0
+    launches = {c.name: c.n for c in counters}
+    it = iters.float().cpu()
+    solves = B * STEPS
+    sps = solves / dt_chunk
+    unc_n = int(unc)
+    print(f"[chip_smoke] main path: {sps:.1f} solves/s (batch {B}, "
+          f"{STEPS} steps in {dt_chunk:.3f} s), ADMM iters mean "
+          f"{float(it.mean()):.2f} p50 {float(it.quantile(0.5)):.0f} "
+          f"p99 {float(it.quantile(0.99)):.0f}, rejected {int(rej)}, "
+          f"not solved to tolerance {unc_n} of {solves}, launches "
+          f"{launches}")
+    for name, n in launches.items():
+        check(f"main_path_launched_{name}", n > 0, f"({n})")
+    check("main_path_solved_90pct", unc_n <= 0.1 * solves,
+          f"({solves - unc_n}/{solves})")
+    check("main_path_finite", bool(torch.isfinite(plant.x).all()))
+
+    kernels = []
+
+    # ---- phase 2: kernels against their plain versions ---------------------
+    # B3: plant rollout on the batch's current states and inputs
+    u = state.u_old.contiguous()
+    ox, oxg = cuda_rollout.plant_step_batch(plant.x, plant.x_glob, u, vp,
+                                            trk, cfg.sim, table=table)
+    px, pxg = cuda_rollout.plant_step_batch_plain(plant.x, plant.x_glob, u,
+                                                  vp, trk, cfg.sim)
+    err = max(float((ox - px).abs().max()), float((oxg - pxg).abs().max()))
+    check("rollout_vs_plain", err < 1e-4, f"(max |dx| {err:.2e})")
+    ms = time_ms(torch, lambda: cuda_rollout.plant_step_batch(
+        plant.x, plant.x_glob, u, vp, trk, cfg.sim, table=table))
+    pms = time_ms(torch, lambda: cuda_rollout.plant_step_batch_plain(
+        plant.x, plant.x_glob, u, vp, trk, cfg.sim))
+    bms, by = bound_ms(nbytes(plant.x, plant.x_glob, u, ox, oxg),
+                       B * cfg.sim.substeps * 60.0)
+    kernels.append(dict(
+        name="rollout", route="cuda",
+        source="racinglmpc_tpu_torch/csrc/cuda_rollout.cu",
+        replaces="racinglmpc_tpu/ops/pallas_rollout.py:66",
+        launches=launches["rollout"], max_abs_err=err, ms=ms, plain_ms=pms,
+        bound_ms=bms, bound_by=by, library_ms=None))
+
+    # B2: sys-ID at the horizon of the current state (full store), then a
+    # ragged store (one lap of 37 rows) with an empty lap
+    N = cfg.lmpc.N
+    x_lin = state.x_lin[:, :N].contiguous()
+    u_lin = state.u_lin.contiguous()
+    st = state.store
+    ragged_steps = st.steps.clone()
+    ragged_steps[:, 1] = 37
+    ragged_steps[:, 3] = sysid._EMPTY
+    rx, ru = st.x.clone(), st.u.clone()
+    rx[:, 3] = 0.0
+    ru[:, 3] = 0.0
+    ragged = sysid.LapStore(rx, ru, ragged_steps)
+    errs = []
+    for store in (st, ragged):
+        k = cuda_sysid.local_linearization_horizon(
+            store, trk, x_lin, u_lin, cfg.lmpc, cfg.sim.dt, table=table)
+        p = cuda_sysid.local_linearization_horizon_plain(
+            store, trk, x_lin, u_lin, cfg.lmpc, cfg.sim.dt)
+        errs.append(max(float((a - b).abs().max()) for a, b in zip(k, p)))
+    check("sysid_vs_plain", max(errs) < 1e-3,
+          f"(max |dA|,|dB|,|dC| full {errs[0]:.2e}, ragged+empty "
+          f"{errs[1]:.2e})")
+    ms = time_ms(torch, lambda: cuda_sysid.local_linearization_horizon(
+        st, trk, x_lin, u_lin, cfg.lmpc, cfg.sim.dt, table=table))
+    pms = time_ms(torch, lambda: cuda_sysid.local_linearization_horizon_plain(
+        st, trk, x_lin, u_lin, cfg.lmpc, cfg.sim.dt))
+    Kl, T = st.x.shape[1], st.x.shape[2]
+    ops = B * N * Kl * T * (19.0 + 2.0 * cfg.lmpc.knn_max)
+    bms, by = bound_ms(nbytes(st.x, st.u, st.steps, x_lin, u_lin, *k), ops)
+    kernels.append(dict(
+        name="sysid", route="cuda",
+        source="racinglmpc_tpu_torch/csrc/cuda_sysid.cu",
+        replaces="racinglmpc_tpu/ops/pallas_sysid.py:68",
+        launches=launches["sysid"], max_abs_err=max(errs), ms=ms,
+        plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None))
+
+    # B1: the batch's own FTOCPs, prologue as in the solve
+    qp, _, _, _ = ctrl.build_qp(state, plant.x)
+    warm = (state.warm_x, state.warm_y)
+    names = ("P", "Kinv", "A", "q", "l", "u", "rho", "D", "E", "c", "x0",
+             "z0", "y0")
+
+    def admm_args(scfg, fac):
+        pro, Kinv1, _ = qp_mod.admm_inputs(qp, scfg, warm, fac)
+        kw = qp_mod.kernel_args(pro, Kinv1, scfg)
+        return [kw.pop(n) for n in names], kw
+
+    fixed = dataclasses.replace(cfg.solver, eps_abs=0.0, eps_rel=0.0,
+                                max_iter=16, check_every=16,
+                                rescue_max_iter=0)
+    args, kw = admm_args(fixed, state.fac)
+    k = cuda_qp.admm_iterate(*args, **kw)
+    p = cuda_qp.admm_iterate_plain(*args, **kw)
+    err_b1 = float((k[0] - p[0]).abs().max())
+    check("admm_fixed16_vs_plain", err_b1 < 3e-2, f"(max |dx| {err_b1:.2e})")
+
+    args, kw = admm_args(cfg.solver, state.fac)
+    k = cuda_qp.admm_iterate(*args, **kw)
+    p = cuda_qp.admm_iterate_plain(*args, **kw)
+    n_ok = int(k[5].sum())
+    check("admm_tolerance_solves_batch", n_ok >= 0.9 * B,
+          f"(solved {n_ok}/{B}; plain {int(p[5].sum())}/{B}; iters mean "
+          f"kernel {float(k[4].float().mean()):.2f} plain "
+          f"{float(p[4].float().mean()):.2f})")
+    ms = time_ms(torch, lambda: cuda_qp.admm_iterate(*args, **kw))
+    pms = time_ms(torch, lambda: cuda_qp.admm_iterate_plain(*args, **kw))
+    n, m = qp.q.shape[1], qp.l.shape[1]
+    per_iter = 6.0 * n * n + 8.0 * m * n + 30.0 * (n + m)
+    per_check = 2.0 * n * n + 4.0 * m * n + 20.0 * (n + m)
+    iters_b = k[4].double()
+    checks = 1 + torch.ceil(iters_b / cfg.solver.check_every)
+    ops = float((iters_b * per_iter + checks * per_check).sum())
+    bms, by = bound_ms(nbytes(*args, k[0], k[1], k[2], k[3], k[4]), ops)
+
+    rescue_cfg = dataclasses.replace(
+        cfg.solver, rho=1e-4, rho_eq_scale=1.0, max_iter=40,
+        check_every=10, scaling_iters=0, eps_abs=1e-4, eps_rel=1e-4,
+        rescue_max_iter=400, rescue_rho_scale=100.0)
+    r_args, r_kw = admm_args(rescue_cfg, None)
+    kr = cuda_qp.admm_iterate(*r_args, **r_kw)
+    pr = cuda_qp.admm_iterate_plain(*r_args, **r_kw)
+    same_flags = bool((kr[6] == pr[6]).all())
+    same_iters = float((kr[4] == pr[4]).float().mean())
+    check("admm_forced_rescue", bool(kr[6].all()) and same_flags
+          and same_iters == 1.0,
+          f"(rescued {int(kr[6].sum())}/{B}, flags equal {same_flags}, "
+          f"iteration counts equal on {100 * same_iters:.1f}% of lanes, "
+          f"rescued-lane iters mean kernel {float(kr[4].float().mean()):.1f} "
+          f"plain {float(pr[4].float().mean()):.1f})")
+    kernels.append(dict(
+        name="admm", route="cuda",
+        source="racinglmpc_tpu_torch/csrc/cuda_qp.cu",
+        replaces="racinglmpc_tpu/ops/pallas_qp.py:391",
+        launches=launches["admm"], max_abs_err=err_b1, ms=ms, plain_ms=pms,
+        bound_ms=bms, bound_by=by, library_ms=None))
+    for kinfo in kernels:
+        print(f"[chip_smoke] kernel {kinfo['name']}: {kinfo['ms']:.4f} ms "
+              f"(plain {kinfo['plain_ms']:.4f} ms, bound "
+              f"{kinfo['bound_ms']:.4f} ms by {kinfo['bound_by']}), "
+              f"{kinfo['launches']} launches on the main path")
+
+    # ---- phase 4: closed loop ------------------------------------------------
+    loop_cfg = exp.ExperimentConfig(
+        stage_steps=450, n_lmpc_laps=4, lap_max_steps=500, lap_chunk=125,
+        solver=SolverConfig.throughput(),
+        sim=SimConfig(use_pallas_rollout=True),
+        lmpc=LMPCConfig(max_laps=10, max_pts=1024, model_pts=512,
+                        use_pallas_sysid=True))
+    for c in counters:
+        c.reset()
+    t0 = time.time()
+    res = exp.run_experiment(loop_cfg, batch=4, stages="pid,lmpc", trk=trk,
+                             device=dev, seed=0)
+    ls = res.lap_steps.astype(float)
+    gain = 1.0 - ls[:, -1].mean() / ls[:, 0].mean()
+    finite = bool(torch.isfinite(res.lmpc_state.x_pred).all())
+    print(f"[chip_smoke] closed loop ({time.time() - t0:.1f} s): lap steps "
+          f"{res.lap_steps.tolist()}, lap times {res.lap_times.tolist()}, "
+          f"launches {dict((c.name, c.n) for c in counters)}")
+    check("closed_loop_laps_finished", bool((res.lap_steps < 500).all()))
+    check("closed_loop_improves_15pct", gain > 0.15,
+          f"(first->last mean lap steps {100 * gain:.1f}%)")
+    check("closed_loop_finite", finite)
+    check("closed_loop_used_kernels", all(c.n > 0 for c in counters))
+
+    if FAILED:
+        print(f"[chip_smoke] FAILED: {', '.join(FAILED)}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,309 @@
+"""Kernel B1: the ADMM iteration loop with the rho-escalation rescue.
+
+Replaces ``racinglmpc_tpu/ops/pallas_qp.py::_kernel`` + ``_admm_core``
+(through ``admm_iterate``). Per scenario, on the Ruiz-scaled QP with fixed
+rho: an entry residual check (iters = 0 when already at tolerance), then
+chunks of ``check_every`` iterations of
+
+    x-update  xt = rhs·Kinv + ``refine_steps`` refinement rounds against the
+              exact operator P + sigma I + A' rho A (three terms, never a
+              formed K), alpha-relaxation, z clipped to [l, u], y update
+
+with unscaled primal/dual checks after each chunk, exactly ``max_iter``
+iterations counted. Where the primal residual ends above
+``rescue_trigger``, the rescue scales rho, rebuilds
+K2 = P + sigma I + A' (s rho) A, inverts it by Newton-Schulz (warm from
+Kinv / s when the Frobenius residual of the 128-padded system is < 0.9,
+else Jacobi; restart pass when bad) and runs up to ``rescue_max_iter``
+more iterations with a primal-only exit.
+
+The CUDA version (``csrc/cuda_qp.cu``) is two launches: the main loop, one
+CTA per scenario (per-scenario early exit), then the rescue, one CTA per
+scenario that returns at once unless its scenario needs the rescue; K2 and
+the Newton-Schulz products are a tiled float32 GEMM written in the kernel,
+with the matrices in a global-memory workspace.
+
+Padding: the Pallas kernel pads n to a multiple of 128 with an identity
+pad block in K2 and a zero pad block in the warm start. That block never
+changes the ADMM iterates, but it is part of the rescue's Newton-Schulz
+gates: the warm test sees its sqrt(n_pad) Frobenius share (so with
+n_pad > 0 the warm start is never taken) and the loop's max|R| sees the
+pad block's own scalar Newton-Schulz sequence. Both versions here carry
+that scalar instead of the padded block.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+
+from racinglmpc_tpu_torch.ops import cuda_build
+from racinglmpc_tpu_torch.utils.batched import lane_where as _w
+from racinglmpc_tpu_torch.utils.batched import mv as _mv
+from racinglmpc_tpu_torch.utils.batched import vm as _vm
+
+_BIG = 1e30
+_LANE = 128
+launches = cuda_build.LaunchCounter("admm")
+
+
+def _n_pad(n: int) -> int:
+    return -(-n // _LANE) * _LANE - n
+
+
+class _Vec(NamedTuple):
+    """The per-scenario vectors of one solve (float32)."""
+
+    q: torch.Tensor
+    l: torch.Tensor
+    u: torch.Tensor
+    rho: torch.Tensor
+    rho_inv: torch.Tensor
+    D: torch.Tensor
+    E_inv: torch.Tensor
+    c_inv: torch.Tensor
+
+
+def _vec(q, l, u, rho, D, E, c) -> _Vec:
+    f = torch.float32
+    rho = rho.to(f)
+    return _Vec(q.to(f), torch.clamp(l.to(f), -_BIG, _BIG),
+                torch.clamp(u.to(f), -_BIG, _BIG), rho, 1.0 / rho, D.to(f),
+                1.0 / E.to(f), 1.0 / c.to(f))
+
+
+def admm_iterate_plain(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
+                       sigma: float, alpha: float, eps_abs: float,
+                       eps_rel: float, max_iter: int, check_every: int,
+                       refine_steps: int, rescue_max_iter: int = 0,
+                       rescue_rho_scale: float = 5.0,
+                       rescue_trigger: float = 7.5e-3,
+                       rescue_exit: float = 1e-3, ns_tol: float = 1e-3,
+                       ns_max_iters: int = 40):
+    """Plain PyTorch version of the kernel on the same batched inputs.
+
+    Returns (x (B, n), y (B, m), pri, dua, iters (int32), solved, rescued)
+    in scaled coordinates."""
+    f = torch.float32
+    P, Kinv, A = P.to(f), Kinv.to(f), A.to(f)
+    v = _vec(q, l, u, rho, D, E, c)
+    x, z, y = x0.to(f), z0.to(f), y0.to(f)
+    one_m_alpha = 1.0 - alpha
+
+    def one_iter(v, P, A, Kinv, x, z, y):
+        rhs = sigma * x - v.q + _vm(v.rho * z - y, A)
+        xt = _vm(rhs, Kinv)
+        for _ in range(refine_steps):
+            r = rhs - (_vm(xt, P) + sigma * xt + _vm(v.rho * _mv(A, xt), A))
+            xt = xt + _vm(r, Kinv)
+        zt = _mv(A, xt)
+        x_new = alpha * xt + one_m_alpha * x
+        z_rel = alpha * zt + one_m_alpha * z
+        z_new = torch.clamp(z_rel + y * v.rho_inv, v.l, v.u)
+        y_new = y + v.rho * (z_rel - z_new)
+        return x_new, z_new, y_new
+
+    def residuals(v, P, A, x, y):
+        Ax = _mv(A, x)
+        zc = torch.clamp(Ax, v.l, v.u)
+        pri = ((Ax - zc) * v.E_inv).abs().amax(-1)
+        Px = _vm(x, P)
+        Aty = _vm(y, A)
+        dua = ((Px + v.q + Aty) * v.D).abs().amax(-1) * v.c_inv
+        pri_sc = torch.maximum((Ax * v.E_inv).abs().amax(-1),
+                               (zc * v.E_inv).abs().amax(-1))
+        dua_sc = torch.maximum(
+            torch.maximum((Px * v.D).abs().amax(-1),
+                          (Aty * v.D).abs().amax(-1)),
+            (v.q * v.D).abs().amax(-1)) * v.c_inv
+        ok = ((pri < eps_abs + eps_rel * pri_sc)
+              & (dua < eps_abs + eps_rel * dua_sc))
+        return pri, dua, ok
+
+    def chunks(v, P, A, Kinv, x, z, y, pri, dua, done, iters, it_base,
+               budget, exit_pri):
+        """Check-every chunks while any lane is active; exactly ``budget``
+        iterations counted; newly converged lanes get it_base + used."""
+        for k in range(max(-(-budget // check_every), 1)):
+            active = ~done
+            if not bool(active.any()):
+                break
+            for _ in range(min(check_every, budget - k * check_every)):
+                xn, zn, yn = one_iter(v, P, A, Kinv, x, z, y)
+                x, z, y = _w(active, xn, x), _w(active, zn, z), _w(active, yn, y)
+            p, d, ok = residuals(v, P, A, x, y)
+            if exit_pri is not None:
+                ok = ok | (p < exit_pri)
+            pri = torch.where(active, p, pri)
+            dua = torch.where(active, d, dua)
+            newly = ok & active
+            used = min((k + 1) * check_every, budget)
+            iters = torch.where(newly, it_base + used, iters)
+            done = done | newly
+        return x, z, y, pri, dua, done, iters
+
+    pri, dua, ok0 = residuals(v, P, A, x, y)
+    iters = torch.where(ok0, 0, max_iter).to(torch.int32)
+    x, z, y, pri, dua, done, iters = chunks(
+        v, P, A, Kinv, x, z, y, pri, dua, ok0, iters, 0, max_iter, None)
+    need = pri > rescue_trigger if rescue_max_iter > 0 else torch.zeros_like(done)
+    idx = need.nonzero()[:, 0]
+    if idx.numel() == 0:
+        return x, y, pri, dua, iters, done, need
+
+    s = rescue_rho_scale
+    vs = _Vec(*(t[idx] for t in v))
+    Ps, As = P[idx], A[idx]
+    K2inv = _rescue_kinv(Ps, As, Kinv[idx], vs.rho, sigma, s, ns_tol,
+                         ns_max_iters)
+    vs = vs._replace(rho=vs.rho * s, rho_inv=vs.rho_inv / s)
+    it_main = torch.clamp(iters[idx], max=max_iter)
+    xs, _, ys, ps, ds, _, its = chunks(
+        vs, Ps, As, K2inv, x[idx], z[idx], y[idx], pri[idx], dua[idx],
+        torch.zeros_like(idx, dtype=torch.bool), it_main + rescue_max_iter,
+        it_main, rescue_max_iter, rescue_exit)
+    x, y, pri, dua, iters = (t.clone() for t in (x, y, pri, dua, iters))
+    x[idx], y[idx], pri[idx], dua[idx], iters[idx] = xs, ys, ps, ds, its
+    done = done | (need & (pri < rescue_exit))
+    return x, y, pri, dua, iters, done, need
+
+
+def _rescue_kinv(P, A, Kinv, rho, sigma: float, s: float, ns_tol: float,
+                 ns_max_iters: int):
+    """The rescue's K2 = P + sigma I + A'(s rho)A and its two-pass
+    Newton-Schulz inverse, with the 128-pad block carried as a scalar."""
+    Bsz, n, _ = P.shape
+    dt, dev = P.dtype, P.device
+    n_pad = _n_pad(n)
+    eye = torch.eye(n, dtype=dt, device=dev)
+    Arho = A * rho[:, :, None]
+    K2 = (A.transpose(1, 2) @ Arho) * s + P + sigma * eye
+    dg = 1.0 / torch.clamp(torch.diagonal(K2, dim1=1, dim2=2), min=1e-12)
+    Rj = eye - K2 * dg[:, None, :]
+    cj = torch.sqrt((Rj * Rj).sum((1, 2)))
+    cjm = torch.clamp(cj, min=1.0)
+    Xj = (eye * dg[:, None, :]) / cjm[:, None, None]
+    xj_pad = 1.0 / cjm
+    if n_pad == 0:
+        X0r = Kinv / s
+        R0 = eye - K2 @ X0r
+        r0f = torch.sqrt((R0 * R0).sum((1, 2)))
+        use_warm = torch.isfinite(r0f) & (r0f < 0.9)
+        Xi = _w(use_warm, X0r, Xj)
+    else:
+        # sqrt(|R0_real|_F^2 + n_pad) >= 1: the padded warm test never passes
+        Xi = Xj
+    xp_i = xj_pad
+
+    def ns_run(X, xp):
+        X, xp = X.clone(), xp.clone()
+        r = torch.full((Bsz,), math.inf, dtype=dt, device=dev)
+        it = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
+        while True:
+            act = (r > ns_tol) & (it < ns_max_iters)
+            if not bool(act.any()):
+                return X, r, xp
+            R = eye - K2 @ X
+            rmax = R.abs().amax((1, 2))
+            if n_pad:
+                rmax = torch.maximum(rmax, (1.0 - xp).abs())
+            Xn = X + X @ R
+            X = _w(act, Xn, X)
+            r = torch.where(act, rmax, r)
+            xp = torch.where(act, xp + xp * (1.0 - xp), xp)
+            it = it + act.to(torch.int32)
+
+    X1, r1, xp1 = ns_run(Xi, xp_i)
+    bad = ~torch.isfinite(r1) | (r1 > 50 * ns_tol)
+    X2, _, _ = ns_run(_w(bad, Xj, X1), torch.where(bad, xj_pad, xp1))
+    return X2
+
+
+class _Params(ctypes.Structure):
+    _fields_ = [
+        ("n", ctypes.c_int), ("m", ctypes.c_int), ("max_iter", ctypes.c_int),
+        ("check_every", ctypes.c_int), ("refine_steps", ctypes.c_int),
+        ("rescue_max_iter", ctypes.c_int), ("ns_max_iters", ctypes.c_int),
+        ("n_pad", ctypes.c_int),
+        ("sigma", ctypes.c_float), ("alpha", ctypes.c_float),
+        ("one_m_alpha", ctypes.c_float), ("eps_abs", ctypes.c_float),
+        ("eps_rel", ctypes.c_float), ("rescue_rho_scale", ctypes.c_float),
+        ("rescue_trigger", ctypes.c_float), ("rescue_exit", ctypes.c_float),
+        ("ns_tol", ctypes.c_float),
+    ]
+
+
+def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
+                 sigma: float, alpha: float, eps_abs: float, eps_rel: float,
+                 max_iter: int, check_every: int, refine_steps: int,
+                 rescue_max_iter: int = 0, rescue_rho_scale: float = 5.0,
+                 rescue_trigger: float = 7.5e-3, rescue_exit: float = 1e-3,
+                 ns_tol: float = 1e-3, ns_max_iters: int = 40
+                 ) -> Tuple[torch.Tensor, ...]:
+    """ADMM loop for a batch of scaled QPs: P, Kinv (B, n, n), A (B, m, n),
+    q, D, x0 (B, n), l, u, rho, E, z0, y0 (B, m), c (B,).
+
+    Returns (x, y, pri, dua, iters, solved, rescued). CPU tensors run the
+    plain version; CUDA float32 contiguous tensors launch the kernel."""
+    kw = dict(sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
+              max_iter=max_iter, check_every=check_every,
+              refine_steps=refine_steps, rescue_max_iter=rescue_max_iter,
+              rescue_rho_scale=rescue_rho_scale,
+              rescue_trigger=rescue_trigger, rescue_exit=rescue_exit,
+              ns_tol=ns_tol, ns_max_iters=ns_max_iters)
+    if not P.is_cuda:
+        return admm_iterate_plain(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0,
+                                  y0, **kw)
+    Bsz, n, _ = P.shape
+    m = A.shape[1]
+    for t, name, shape in (
+            (P, "P", (Bsz, n, n)), (Kinv, "Kinv", (Bsz, n, n)),
+            (A, "A", (Bsz, m, n)), (q, "q", (Bsz, n)), (l, "l", (Bsz, m)),
+            (u, "u", (Bsz, m)), (rho, "rho", (Bsz, m)), (D, "D", (Bsz, n)),
+            (E, "E", (Bsz, m)), (c, "c", (Bsz,)), (x0, "x0", (Bsz, n)),
+            (z0, "z0", (Bsz, m)), (y0, "y0", (Bsz, m))):
+        cuda_build.expect(t, name, shape)
+    if check_every < 1 or max_iter < 1:
+        raise ValueError("check_every and max_iter must be >= 1")
+    p = _Params(n=n, m=m, max_iter=max_iter, check_every=check_every,
+                refine_steps=refine_steps, rescue_max_iter=rescue_max_iter,
+                ns_max_iters=ns_max_iters, n_pad=_n_pad(n), sigma=sigma,
+                alpha=alpha, one_m_alpha=1.0 - alpha, eps_abs=eps_abs,
+                eps_rel=eps_rel, rescue_rho_scale=rescue_rho_scale,
+                rescue_trigger=rescue_trigger, rescue_exit=rescue_exit,
+                ns_tol=ns_tol)
+    vec = _vec(q, l, u, rho, D, E, c)
+    vecs = torch.stack([vec.l, vec.u, vec.rho, vec.rho_inv, vec.E_inv], 1)
+    nvecs = torch.stack([q, D], 1).contiguous()
+    c_inv = vec.c_inv.contiguous()
+    x = torch.empty_like(x0)
+    z = torch.empty_like(z0)
+    y = torch.empty_like(y0)
+    stats = torch.empty((Bsz, 2), dtype=torch.float32, device=P.device)
+    flags = torch.empty((Bsz, 3), dtype=torch.int32, device=P.device)
+    ws = torch.empty((Bsz if rescue_max_iter > 0 else 0, 4, n, n),
+                     dtype=torch.float32, device=P.device)
+    lib = cuda_build.library()
+    lib.rl_admm.argtypes = [_Params] + [ctypes.c_void_p] * 14 + [
+        ctypes.c_int, ctypes.c_void_p]
+    lib.rl_admm.restype = ctypes.c_int
+    Pt = cuda_build.ptr
+    err = lib.rl_admm(p, Pt(P), Pt(Kinv), Pt(A), Pt(nvecs), Pt(vecs),
+                      Pt(c_inv), Pt(x0), Pt(z0), Pt(y0), Pt(x), Pt(z), Pt(y),
+                      Pt(stats), Pt(flags),
+                      Bsz, cuda_build.stream_ptr())
+    launches.n += 1
+    cuda_build.check(err)
+    if rescue_max_iter > 0:
+        lib.rl_admm_rescue.argtypes = [_Params] + [ctypes.c_void_p] * 12 + [
+            ctypes.c_int, ctypes.c_void_p]
+        lib.rl_admm_rescue.restype = ctypes.c_int
+        err = lib.rl_admm_rescue(p, Pt(P), Pt(Kinv), Pt(A), Pt(nvecs),
+                                 Pt(vecs), Pt(c_inv), Pt(x), Pt(z), Pt(y),
+                                 Pt(stats), Pt(flags), Pt(ws), Bsz,
+                                 cuda_build.stream_ptr())
+        cuda_build.check(err)
+    return (x, y, stats[:, 0], stats[:, 1], flags[:, 0], flags[:, 1] != 0,
+            flags[:, 2] != 0)

@@ -1,0 +1,84 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: they skip where no CUDA device is present (every kernel
+needs one; there is no interpret mode). On a machine with a card
+(``--noconftest``: ``tests/conftest.py`` imports JAX, which these tests do
+not need):
+
+    python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
+"""
+import dataclasses
+
+import pytest
+import torch
+
+from racinglmpc_tpu_torch.controllers import lmpc as lmpc_mod
+from racinglmpc_tpu_torch.models import sysid
+from racinglmpc_tpu_torch.models.track import track_table
+from racinglmpc_tpu_torch.ops import cuda_qp, cuda_rollout, cuda_sysid
+from racinglmpc_tpu_torch.ops import qp as qp_mod
+from racinglmpc_tpu_torch.runtime import main_path
+from racinglmpc_tpu_torch.utils.config import VehicleParams
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.cuda
+B = 16
+
+
+@pytest.fixture(scope="module")
+def setup():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    mp, st, plant, _ = main_path.setup(B, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    x0 = plant.x + 0.01 * torch.randn(plant.x.shape, generator=g,
+                                      device="cuda")
+    return mp.cfg, mp.trk, st, x0
+
+
+def test_rollout_matches_plain(setup):
+    cfg, trk, _, x0 = setup
+    u = torch.full((B, 2), 0.1, device="cuda")
+    k = cuda_rollout.plant_step_batch(x0, x0.clone(), u, VehicleParams(),
+                                      trk, cfg.sim, table=track_table(trk))
+    p = cuda_rollout.plant_step_batch_plain(x0, x0.clone(), u,
+                                            VehicleParams(), trk, cfg.sim)
+    for a, b in zip(k, p):
+        assert float((a - b).abs().max()) < 1e-4
+
+
+def test_sysid_matches_plain(setup):
+    cfg, trk, st, _ = setup
+    xl = st.x_lin[:, :cfg.lmpc.N].contiguous()
+    ul = st.u_lin.contiguous()
+    steps = st.store.steps.clone()
+    steps[:, 2] = sysid._EMPTY
+    for store in (st.store, st.store._replace(steps=steps)):
+        k = cuda_sysid.local_linearization_horizon(store, trk, xl, ul,
+                                                   cfg.lmpc, 0.1)
+        p = cuda_sysid.local_linearization_horizon_plain(store, trk, xl, ul,
+                                                         cfg.lmpc, 0.1)
+        for a, b in zip(k, p):
+            assert float((a - b).abs().max()) < 1e-3
+
+
+def test_admm_matches_plain(setup):
+    cfg, trk, st, x0 = setup
+    ctrl = lmpc_mod.make_lmpc(cfg.lmpc, trk, cfg.solver, 0.1)
+    qp = ctrl.build_qp(st, x0)[0]
+    names = ("P", "Kinv", "A", "q", "l", "u", "rho", "D", "E", "c", "x0",
+             "z0", "y0")
+    fixed = dataclasses.replace(cfg.solver, eps_abs=0.0, eps_rel=0.0,
+                                max_iter=16, check_every=16,
+                                rescue_max_iter=0)
+    for scfg in (fixed, cfg.solver):
+        pro, kinv, _ = qp_mod.admm_inputs(qp, scfg)
+        kw = qp_mod.kernel_args(pro, kinv, scfg)
+        args = [kw.pop(n) for n in names]
+        k = cuda_qp.admm_iterate(*args, **kw)
+        p = cuda_qp.admm_iterate_plain(*args, **kw)
+        assert float((k[0] - p[0]).abs().max()) < 3e-2
+        assert bool(k[5].all()) or scfg is fixed
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_qp.admm_iterate(args[0].transpose(1, 2), *args[1:], **kw)
