@@ -16,18 +16,38 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    ``run_experiment(stages="pid", batch=1)`` -- for a warm-up chunk and a
    timed chunk of 50 steps, with the launch counters of the three kernels
    reset just before and read just after (each must be > 0);
-3. holds each kernel against its plain PyTorch version on the card at the
+3. holds B1-B3 against their plain PyTorch versions on the card at the
    main path's shapes (the FTOCPs, lap store and plant states of the batch
    just driven): rollout |dx| < 1e-4, sys-ID |dA|,|dB|,|dC| < 1e-3 (also on
    a ragged store with an empty lap), ADMM |dx| < 3e-2 after 16 fixed
    iterations, >= 90% solved at tolerance, and a forced rho-escalation
    rescue with the same rescued flags and iteration counts as the plain
    version; times each (CUDA events, median of 20 launches after warm-up);
-4. runs the closed loop ``run_experiment(stages="pid,lmpc",
+4. runs the closed loop ``run_experiment(stages="pid,lti,ltv,lmpc",
    n_lmpc_laps=4, batch=4)`` and requires every lap finished, no NaN and a
    first->last lap improvement above 15%;
-5. prints one JSON line per kernel summary, the card line, and as the last
-   line ``{"ok": true, "device": {...}}``.
+5. runs the MPC stages through ``runtime/presets.run_preset``:
+   ``config2_lti`` (batch 64) and ``config3_ltv`` (batch 256), 450 steps
+   each, with the preset's ``throughput()`` solver, each with
+   ``pallas_fused_ns=True`` (counters reset before, read after: B4 > 0 and
+   B1 = 0) and without (B1 > 0), then ``config3_ltv`` with
+   ``throughput_max()`` (the structured KKT build); the plant steps through
+   the rollout kernel B3. Each stage must hold on >= 99% of its scenarios
+   (LTI: mean vx over steps 300+ within 0.12 of 0.8, |ey| < 0.5; LTV: final
+   s > 14.0, |ey| < 0.5) with no NaN; prints stage wall, steps/s and the
+   accepted share of the solves;
+6. holds B4 against its plain version on those stages' FTOCPs -- the LTI
+   stage's with their warm cache (batch 64) and the LTV stage's cold build
+   (batch 256): |dx| < 3e-2 after 16 fixed iterations, >= 90% solved at
+   tolerance, the same warm/cold decision on every lane whose |I - K X0|_F
+   lies farther than 1e-3 from 0.9, max|I - K Kinv| < 50 ns_tol for the
+   kernel's Kinv on every lane; times both; and the structured KKT inverse
+   on the throughput_max LTV stage's K: max|I - K X| < 5e-2;
+7. runs the LMPC stage for 2 laps with a checkpoint, resumes it to 4 laps
+   and requires the lap steps of phase 4's uninterrupted run (the LMPC
+   noise does not depend on which stages ran before it);
+8. prints one JSON line of kernel summaries, the card line, and as the
+   last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 any phase fails. It imports nothing of JAX.
@@ -36,6 +56,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -80,6 +102,192 @@ def nbytes(*ts):
     return float(sum(t.numel() * t.element_size() for t in ts))
 
 
+FUSED_NAMES = ("P", "A", "kinv0", "warm_ok", "q", "l", "u", "rho", "D", "E",
+               "c", "x0", "z0", "y0")
+STAGE_RUNS = (("config2_lti", "fused"), ("config2_lti", "base"),
+              ("config3_ltv", "fused"), ("config3_ltv", "base"),
+              ("config3_ltv", "max"))
+
+
+def stage_ok(torch, x, stage):
+    """Per-scenario criteria of the reference's closed-loop stage tests:
+    no NaN, |ey| < 0.5 throughout, and LTI mean vx over steps 300+ within
+    0.12 of 0.8 / LTV final s > 14.0."""
+    finite = torch.isfinite(x).all(-1).all(-1)
+    lane = (x[..., 5].abs() < 0.5).all(-1)
+    if stage == "lti":
+        goal = (x[:, 300:, 0].mean(-1) - 0.8).abs() < 0.12
+    else:
+        goal = x[:, -1, 4] > 14.0
+    return finite & lane & goal
+
+
+class SolveTally:
+    """Counts the solves of a run and the ones the MPC controllers accept
+    (finite, primal residual below ``accept_pri_res``), on the device."""
+
+    def __init__(self, torch, qp_mod):
+        self.torch, self.qp_mod, self.orig = torch, qp_mod, qp_mod.solve
+        self.n, self.acc = 0, None
+
+    def __enter__(self):
+        def solve(qp, cfg, *a, **k):
+            sol = self.orig(qp, cfg, *a, **k)
+            ok = (self.torch.isfinite(sol.x).all(-1)
+                  & (sol.pri_res < cfg.accept_pri_res)).sum()
+            self.n += sol.x.shape[0]
+            self.acc = ok if self.acc is None else self.acc + ok
+            return sol
+        self.qp_mod.solve = solve
+        return self
+
+    def __exit__(self, *exc):
+        self.qp_mod.solve = self.orig
+
+    def share(self):
+        return float(self.acc) / self.n if self.n else float("nan")
+
+
+def stage_runs(torch, qp_mod, counters, cuda_qp, cuda_qp_fused):
+    """Phase 5: each preset run of STAGE_RUNS with the counters reset just
+    before and read just after."""
+    from racinglmpc_tpu_torch.runtime import presets
+    from racinglmpc_tpu_torch.utils.config import SolverConfig
+
+    runs = {}
+    for name, variant in STAGE_RUNS:
+        base = presets.PRESETS[name]["cfg"]
+        solver = {"fused": dataclasses.replace(base.solver,
+                                               pallas_fused_ns=True),
+                  "base": base.solver,
+                  "max": SolverConfig.throughput_max()}[variant]
+        cfg = dataclasses.replace(base, solver=solver, sim=dataclasses.replace(
+            base.sim, use_pallas_rollout=True))
+        for c in counters:
+            c.reset()
+        with SolveTally(torch, qp_mod) as tally:
+            out = presets.run_preset(name, cfg=cfg, device="cuda")
+        launches = {c.name: c.n for c in counters}
+        res = out["result"]
+        stage = "lti" if name == "config2_lti" else "ltv"
+        ok = stage_ok(torch, getattr(res, stage).x, stage)
+        share = float(ok.float().mean())
+        wall = res.stage_wall_s[stage]
+        sps = out["batch"] * cfg.stage_steps / wall
+        misses = (~ok).nonzero()[:, 0].tolist()
+        print(f"[chip_smoke] {name} ({variant}): batch {out['batch']}, "
+              f"{stage} stage {cfg.stage_steps} steps in {wall:.2f} s = "
+              f"{sps:.1f} scenario-steps/s, whole run {out['wall_s']} s, "
+              f"accepted {100 * tally.share():.2f}% of {tally.n} solves, "
+              f"criteria met {100 * share:.1f}% (misses {misses}), "
+              f"launches {launches}")
+        tag = f"{name}_{variant}"
+        check(f"{tag}_criteria_99pct", share >= 0.99)
+        if variant == "fused":
+            check(f"{tag}_launched_fused_admm",
+                  launches["fused_admm"] > 0 and launches["admm"] == 0,
+                  f"({launches['fused_admm']}, admm {launches['admm']})")
+        else:
+            check(f"{tag}_launched_admm",
+                  launches["admm"] > 0 and launches["fused_admm"] == 0)
+        runs[f"{name}/{variant}"] = dict(cfg=cfg, res=res, launches=launches,
+                                         fused=variant == "fused")
+    return runs
+
+
+def fused_phase(torch, qp_mod, cuda_qp_fused, runs, trk, launches):
+    """Phase 6: B4 against its plain version on the LTI stage's FTOCPs
+    (warm cache, batch 64) and the LTV stage's (cold build, batch 256).
+    Returns the kernel summary (times of the LTV set)."""
+    from racinglmpc_tpu_torch.runtime import stage_path
+
+    info, errs = {}, []
+    for key, stage in (("config2_lti/fused", "lti"),
+                       ("config3_ltv/fused", "ltv")):
+        cfg = runs[key]["cfg"]
+        f = stage_path.stage_ftocps(runs[key]["res"], cfg, stage, trk)
+        fixed = dataclasses.replace(cfg.solver, eps_abs=0.0, eps_rel=0.0,
+                                    max_iter=16, check_every=16,
+                                    rescue_max_iter=0)
+        kw = qp_mod.fused_inputs(f.qp, fixed, f.warm, f.fac)
+        args = [kw.pop(n) for n in FUSED_NAMES]
+        k = cuda_qp_fused.admm_iterate_fused(*args, **kw)
+        p = cuda_qp_fused.admm_iterate_fused_plain(*args, **kw)
+        errs.append(float((k.x - p.x).abs().max()))
+        check(f"fused_admm_{stage}_fixed16_vs_plain", errs[-1] < 3e-2,
+              f"(max |dx| {errs[-1]:.2e})")
+
+        kw = qp_mod.fused_inputs(f.qp, cfg.solver, f.warm, f.fac)
+        args = [kw.pop(n) for n in FUSED_NAMES]
+        k = cuda_qp_fused.admm_iterate_fused(*args, **kw)
+        p = cuda_qp_fused.admm_iterate_fused_plain(*args, **kw)
+        a = dict(zip(FUSED_NAMES, args))
+        B, n = a["q"].shape
+        m = a["l"].shape[1]
+        K = cuda_qp_fused.build_k(a["P"], a["A"], a["rho"], cfg.solver.sigma)
+        eye = torch.eye(n, device=K.device)
+        R0 = eye - K @ a["kinv0"]
+        r0f = torch.sqrt((R0 * R0).sum((1, 2)))
+        close = a["warm_ok"] & ((r0f - 0.9).abs() <= 1e-3)
+        same = bool(((k.warm == p.warm) | close).all())
+        rk = float((eye - K @ k.kinv).abs().amax())
+        n_ok = int(k.solved.sum())
+        check(f"fused_admm_{stage}_tolerance_solves", n_ok >= 0.9 * B,
+              f"(solved {n_ok}/{B}; plain {int(p.solved.sum())}/{B})")
+        check(f"fused_admm_{stage}_same_warm_decision", same,
+              f"(warm kernel {int(k.warm.sum())}/{B}, plain "
+              f"{int(p.warm.sum())}/{B}, {int(close.sum())} lanes within "
+              f"1e-3 of the gate)")
+        check(f"fused_admm_{stage}_kinv_residual",
+              rk < 50 * kw["ns_tol"], f"(max|I - K Kinv| {rk:.2e})")
+        ms = time_ms(torch, lambda: cuda_qp_fused.admm_iterate_fused(
+            *args, **kw))
+        pms = time_ms(torch, lambda: cuda_qp_fused.admm_iterate_fused_plain(
+            *args, **kw))
+        per_iter = 6.0 * n * n + 8.0 * m * n + 30.0 * (n + m)
+        per_check = 2.0 * n * n + 4.0 * m * n + 20.0 * (n + m)
+        iters = k.iters.double()
+        checks = 1 + torch.ceil(iters / cfg.solver.check_every)
+        ops = float((2.0 * m * n * n
+                     + a["warm_ok"].double() * 2.0 * n ** 3
+                     + p.ns_iters.double() * 4.0 * n ** 3
+                     + iters * per_iter + checks * per_check).sum())
+        bms, by = bound_ms(nbytes(*args, k.x, k.y, k.pri, k.dua, k.iters,
+                                  k.kinv, k.ns_resid), ops)
+        print(f"[chip_smoke] kernel fused_admm ({stage}, batch {B}): "
+              f"{ms:.4f} ms (plain {pms:.4f} ms, bound {bms:.4f} ms by "
+              f"{by}); warm {int(k.warm.sum())}/{B}, NS iters mean kernel "
+              f"{float(p.ns_iters.float().mean()):.2f} (plain count), ADMM "
+              f"iters mean kernel {float(k.iters.float().mean()):.2f} plain "
+              f"{float(p.iters.float().mean()):.2f}, ns_resid max "
+              f"{float(k.ns_resid.max()):.2e}")
+        info[stage] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+    return dict(name="fused_admm", route="cuda",
+                source="racinglmpc_tpu_torch/csrc/cuda_qp_fused.cu",
+                replaces="racinglmpc_tpu/ops/pallas_qp.py:424",
+                launches=launches, max_abs_err=max(errs),
+                ms=info["ltv"]["ms"], plain_ms=info["ltv"]["plain_ms"],
+                bound_ms=info["ltv"]["bound_ms"],
+                bound_by=info["ltv"]["bound_by"], library_ms=None)
+
+
+def structured_phase(torch, qp_mod, run, trk):
+    """The structured KKT inverse on the throughput_max LTV stage's K
+    (cold Ruiz scaling, as ``examples/tpu_smoke.py`` checks it)."""
+    from racinglmpc_tpu_torch.ops import kkt_band
+    from racinglmpc_tpu_torch.runtime import stage_path
+
+    cfg = run["cfg"]
+    f = stage_path.stage_ftocps(run["res"], cfg, "ltv", trk, steps=2)
+    pro = qp_mod._prologue(f.qp, cfg.solver, None, None)
+    K = qp_mod._build_K(pro.qp_s, pro.rho0, cfg.solver.sigma)
+    X = kkt_band.structured_kinv(K, f.ctrl.structure)
+    eye = torch.eye(K.shape[-1], device=K.device)
+    resid = float((eye - K @ X).abs().amax())
+    check("structured_kinv_residual", resid < 5e-2,
+          f"(max|I - K X| {resid:.2e} over {K.shape[0]} LTV FTOCPs)")
+
+
 def main() -> int:
     import torch
 
@@ -88,8 +296,8 @@ def main() -> int:
         return 2
 
     from racinglmpc_tpu_torch.models import sysid
-    from racinglmpc_tpu_torch.ops import (cuda_build, cuda_qp, cuda_rollout,
-                                          cuda_sysid)
+    from racinglmpc_tpu_torch.ops import (cuda_build, cuda_qp, cuda_qp_fused,
+                                          cuda_rollout, cuda_sysid)
     from racinglmpc_tpu_torch.ops import qp as qp_mod
     from racinglmpc_tpu_torch.runtime import experiment as exp
     from racinglmpc_tpu_torch.runtime import main_path
@@ -98,7 +306,8 @@ def main() -> int:
 
     dev = "cuda"
     B, STEPS = 256, 50
-    counters = (cuda_qp.launches, cuda_sysid.launches, cuda_rollout.launches)
+    counters = (cuda_qp.launches, cuda_sysid.launches, cuda_rollout.launches,
+                cuda_qp_fused.launches)
 
     # ---- phase 1: device, build ------------------------------------------
     smi = subprocess.run(
@@ -118,7 +327,7 @@ def main() -> int:
     print(f"[chip_smoke] tf32 matmul/cudnn: {tf32}")
     check("tf32_off", tf32 == (False, False))
 
-    # ---- main path: PID seed stage, batch-256 LMPC step --------------------
+    # ---- phase 2: main path: PID seed stage, batch-256 LMPC step ----------
     for c in counters:
         c.reset()
     t0 = time.time()
@@ -154,14 +363,15 @@ def main() -> int:
           f"not solved to tolerance {unc_n} of {solves}, launches "
           f"{launches}")
     for name, n in launches.items():
-        check(f"main_path_launched_{name}", n > 0, f"({n})")
+        if name != "fused_admm":      # B4 is off on the main path
+            check(f"main_path_launched_{name}", n > 0, f"({n})")
     check("main_path_solved_90pct", unc_n <= 0.1 * solves,
           f"({solves - unc_n}/{solves})")
     check("main_path_finite", bool(torch.isfinite(plant.x).all()))
 
     kernels = []
 
-    # ---- phase 2: kernels against their plain versions ---------------------
+    # ---- phase 3: B1-B3 against their plain versions ----------------------
     # B3: plant rollout on the batch's current states and inputs
     u = state.u_old.contiguous()
     ox, oxg = cuda_rollout.plant_step_batch(plant.x, plant.x_glob, u, vp,
@@ -285,7 +495,7 @@ def main() -> int:
               f"{kinfo['bound_ms']:.4f} ms by {kinfo['bound_by']}), "
               f"{kinfo['launches']} launches on the main path")
 
-    # ---- phase 4: closed loop ------------------------------------------------
+    # ---- phase 4: closed loop, all four stages -----------------------------
     loop_cfg = exp.ExperimentConfig(
         stage_steps=450, n_lmpc_laps=4, lap_max_steps=500, lap_chunk=125,
         solver=SolverConfig.throughput(),
@@ -295,19 +505,52 @@ def main() -> int:
     for c in counters:
         c.reset()
     t0 = time.time()
-    res = exp.run_experiment(loop_cfg, batch=4, stages="pid,lmpc", trk=trk,
-                             device=dev, seed=0)
+    res = exp.run_experiment(loop_cfg, batch=4, stages="pid,lti,ltv,lmpc",
+                             trk=trk, device=dev, seed=0)
     ls = res.lap_steps.astype(float)
     gain = 1.0 - ls[:, -1].mean() / ls[:, 0].mean()
-    finite = bool(torch.isfinite(res.lmpc_state.x_pred).all())
-    print(f"[chip_smoke] closed loop ({time.time() - t0:.1f} s): lap steps "
-          f"{res.lap_steps.tolist()}, lap times {res.lap_times.tolist()}, "
-          f"launches {dict((c.name, c.n) for c in counters)}")
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        res.lmpc_state.x_pred, res.lti.x, res.ltv.x))
+    walls = {k: round(v, 1) for k, v in res.stage_wall_s.items()}
+    print(f"[chip_smoke] closed loop ({time.time() - t0:.1f} s, stage walls "
+          f"{walls} s): lap steps {res.lap_steps.tolist()}, lap times "
+          f"{res.lap_times.tolist()}, launches "
+          f"{dict((c.name, c.n) for c in counters)}")
     check("closed_loop_laps_finished", bool((res.lap_steps < 500).all()))
     check("closed_loop_improves_15pct", gain > 0.15,
           f"(first->last mean lap steps {100 * gain:.1f}%)")
     check("closed_loop_finite", finite)
-    check("closed_loop_used_kernels", all(c.n > 0 for c in counters))
+    check("closed_loop_used_kernels",
+          all(c.n > 0 for c in counters if c.name != "fused_admm"))
+    loop_steps = res.lap_steps
+
+    # ---- phase 5: the MPC stages through the presets ----------------------
+    runs = stage_runs(torch, qp_mod, counters, cuda_qp, cuda_qp_fused)
+    fused_launches = sum(r["launches"]["fused_admm"] for r in runs.values()
+                         if r["fused"])
+
+    # ---- phase 6: B4 against its plain version; structured inverse -------
+    kernels.append(fused_phase(torch, qp_mod, cuda_qp_fused, runs, trk,
+                               fused_launches))
+    structured_phase(torch, qp_mod, runs["config3_ltv/max"], trk)
+
+    # ---- phase 7: checkpoint and resume -----------------------------------
+    ck = pathlib.Path(__file__).resolve().parent / "build" / "smoke_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    t0 = time.time()
+    two = dataclasses.replace(loop_cfg, n_lmpc_laps=2)
+    exp.run_experiment(two, batch=4, stages="pid,lmpc", trk=trk, device=dev,
+                       seed=0, checkpoint_dir=str(ck))
+    res = exp.run_experiment(loop_cfg, batch=4, stages="pid,lmpc", trk=trk,
+                             device=dev, seed=0, checkpoint_dir=str(ck),
+                             resume=True)
+    shutil.rmtree(ck, ignore_errors=True)
+    same = res.lap_steps.shape == loop_steps.shape and bool(
+        (res.lap_steps == loop_steps).all())
+    print(f"[chip_smoke] checkpoint + resume ({time.time() - t0:.1f} s): "
+          f"resumed at lap {res.resume_lap}, lap steps "
+          f"{res.lap_steps.tolist()} (uninterrupted {loop_steps.tolist()})")
+    check("resume_reproduces_uninterrupted", res.resume_lap == 2 and same)
 
     if FAILED:
         print(f"[chip_smoke] FAILED: {', '.join(FAILED)}", file=sys.stderr)

@@ -5,8 +5,9 @@ The reference's state types are NamedTuples of arrays. Given one as a
 ``jax.device_get`` and ``_asdict()`` -- :func:`from_jax` returns the port's
 NamedTuple of tensors with the same fields, shapes and dtypes, for
 ``Track``, ``LapStore``, ``SafeSet``, ``ExtBuffer``, ``FactorCache``,
-``LMPCState`` (nested) and ``PlantState`` (a leading scenario axis is
-expected wherever the port's type has one). Nothing here imports JAX.
+``LMPCState`` and ``MPCState`` (nested) and ``PlantState`` (a leading
+scenario axis is expected wherever the port's type has one). Nothing here
+imports JAX.
 """
 from __future__ import annotations
 
@@ -17,12 +18,14 @@ import torch
 
 from racinglmpc_tpu_torch.controllers.lmpc import (
     ExtBuffer, LMPCState, SafeSet)
+from racinglmpc_tpu_torch.controllers.mpc import MPCState
 from racinglmpc_tpu_torch.models.sysid import LapStore
 from racinglmpc_tpu_torch.ops.qp import FactorCache
 
 _NESTED = {
     LMPCState: {"ss": SafeSet, "ext": ExtBuffer, "store": LapStore,
                 "fac": FactorCache},
+    MPCState: {"fac": FactorCache},
 }
 
 

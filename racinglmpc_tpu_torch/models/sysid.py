@@ -1,9 +1,12 @@
-"""Local system identification: the LMPC's per-step local weighted LS.
+"""System identification: the global LTI ridge fit and the per-step local
+weighted LS.
 
-Port of the ``LapStore`` / ``local_linearization_horizon`` half of
-``racinglmpc_tpu/models/sysid.py`` (the global LTI fit waits for the LTI
-stage, ROADMAP item 11). Everything carries a leading scenario axis B:
+Port of ``racinglmpc_tpu/models/sysid.py``. Everything carries a leading
+scenario axis B:
 
+- :func:`lti_regression` is the LTI-MPC stage's one-shot ridge fit
+  x_{t+1} ~ A x_t + B u_t over pairs t in [1, steps-2] (sample 0 skipped),
+  no intercept, ridge ``lamb I`` on the 8x8 normal matrix;
 - :class:`LapStore` keeps the K shortest laps seen (fixed capacity);
 - for each horizon query, each stored lap contributes its ``knn_max``
   nearest samples in the scaled-L1 metric on [vx, vy, wz, delta, a]
@@ -62,6 +65,28 @@ def add_lap(store: LapStore, x: torch.Tensor, u: torch.Tensor,
     new_u[bi, slot] = torch.where(do[:, None, None], uk, store.u[bi, slot])
     new_steps[bi, slot] = torch.where(do, steps, old)
     return LapStore(x=new_x, u=new_u, steps=new_steps)
+
+
+def lti_regression(x: torch.Tensor, u: torch.Tensor, lamb: float,
+                   steps=None):
+    """Ridge fit over stored trajectories x (B, T, 6), u (B, T, 2); rows
+    ``>= steps`` (B,) are padding. Returns (A (B, 6, 6), B (B, 6, 2),
+    err (B, 2, 6): max / min one-step residuals)."""
+    Bsz, T, _ = x.shape
+    t = torch.arange(T - 1, device=x.device)
+    n_valid = (torch.full((Bsz,), T, device=x.device) if steps is None
+               else steps.to(x.device)) - 1
+    w = ((t >= 1) & (t < n_valid[:, None])).to(x.dtype)       # (B, T-1)
+    X = torch.cat([x[:, :-1], u[:, :-1]], -1)                  # (B, T-1, 8)
+    Y = x[:, 1:]
+    Xw = X * w[..., None]
+    Xt = X.transpose(1, 2)
+    Q = Xt @ Xw + lamb * torch.eye(8, dtype=x.dtype, device=x.device)
+    W = torch.linalg.solve(Q, Xw.transpose(1, 2) @ Y)          # (B, 8, 6)
+    Wt = W.transpose(1, 2)
+    resid = (X @ W - Y) * w[..., None]
+    err = torch.stack([resid.amax(1), resid.amin(1)], 1)
+    return Wt[:, :, :6], Wt[:, :, 6:8], err
 
 
 def _solve_small_spd(Q: torch.Tensor, B: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("runtime.cu", "cuda_rollout.cu", "cuda_sysid.cu", "cuda_qp.cu")
+SOURCES = ("runtime.cu", "cuda_rollout.cu", "cuda_sysid.cu", "cuda_qp.cu",
+           "cuda_qp_fused.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -81,8 +81,10 @@ def admm_iterate_plain(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
                        rescue_rho_scale: float = 5.0,
                        rescue_trigger: float = 7.5e-3,
                        rescue_exit: float = 1e-3, ns_tol: float = 1e-3,
-                       ns_max_iters: int = 40):
+                       ns_max_iters: int = 40, kinv_pad=None):
     """Plain PyTorch version of the kernel on the same batched inputs.
+    ``kinv_pad`` (B,): the scalar of Kinv's 128-pad block (B4's refreshed
+    inverse); None for B1, whose padded Kinv has a zero pad block.
 
     Returns (x (B, n), y (B, m), pri, dua, iters (int32), solved, rescued)
     in scaled coordinates."""
@@ -156,7 +158,9 @@ def admm_iterate_plain(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
     s = rescue_rho_scale
     vs = _Vec(*(t[idx] for t in v))
     Ps, As = P[idx], A[idx]
-    K2inv = _rescue_kinv(Ps, As, Kinv[idx], vs.rho, sigma, s, ns_tol,
+    kp = (torch.zeros_like(vs.c_inv) if kinv_pad is None
+          else kinv_pad[idx].to(f))
+    K2inv = _rescue_kinv(Ps, As, Kinv[idx], kp, vs.rho, sigma, s, ns_tol,
                          ns_max_iters)
     vs = vs._replace(rho=vs.rho * s, rho_inv=vs.rho_inv / s)
     it_main = torch.clamp(iters[idx], max=max_iter)
@@ -170,10 +174,11 @@ def admm_iterate_plain(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
     return x, y, pri, dua, iters, done, need
 
 
-def _rescue_kinv(P, A, Kinv, rho, sigma: float, s: float, ns_tol: float,
-                 ns_max_iters: int):
+def _rescue_kinv(P, A, Kinv, kinv_pad, rho, sigma: float, s: float,
+                 ns_tol: float, ns_max_iters: int):
     """The rescue's K2 = P + sigma I + A'(s rho)A and its two-pass
-    Newton-Schulz inverse, with the 128-pad block carried as a scalar."""
+    Newton-Schulz inverse, with the 128-pad block carried as a scalar
+    (``kinv_pad``: the pad scalar of the incoming Kinv)."""
     Bsz, n, _ = P.shape
     dt, dev = P.dtype, P.device
     n_pad = _n_pad(n)
@@ -186,16 +191,22 @@ def _rescue_kinv(P, A, Kinv, rho, sigma: float, s: float, ns_tol: float,
     cjm = torch.clamp(cj, min=1.0)
     Xj = (eye * dg[:, None, :]) / cjm[:, None, None]
     xj_pad = 1.0 / cjm
-    if n_pad == 0:
+    # warm test on Kinv / s: the pad block adds n_pad (1 - kp/s)^2 to the
+    # squared Frobenius residual (>= 1 for B1's zero pad block, so the
+    # padded test never passes there)
+    pad_sq = (n_pad * (1.0 - kinv_pad / s) ** 2 if n_pad
+              else torch.zeros_like(kinv_pad))
+    try_warm = pad_sq < 0.81
+    use_warm = torch.zeros_like(try_warm)
+    if bool(try_warm.any()):
         X0r = Kinv / s
         R0 = eye - K2 @ X0r
-        r0f = torch.sqrt((R0 * R0).sum((1, 2)))
-        use_warm = torch.isfinite(r0f) & (r0f < 0.9)
+        r0f = torch.sqrt((R0 * R0).sum((1, 2)) + pad_sq)
+        use_warm = try_warm & torch.isfinite(r0f) & (r0f < 0.9)
         Xi = _w(use_warm, X0r, Xj)
     else:
-        # sqrt(|R0_real|_F^2 + n_pad) >= 1: the padded warm test never passes
         Xi = Xj
-    xp_i = xj_pad
+    xp_i = torch.where(use_warm, kinv_pad / s, xj_pad)
 
     def ns_run(X, xp):
         X, xp = X.clone(), xp.clone()
@@ -235,6 +246,50 @@ class _Params(ctypes.Structure):
     ]
 
 
+def params(n: int, m: int, *, sigma: float, alpha: float, eps_abs: float,
+           eps_rel: float, max_iter: int, check_every: int,
+           refine_steps: int, rescue_max_iter: int, rescue_rho_scale: float,
+           rescue_trigger: float, rescue_exit: float, ns_tol: float,
+           ns_max_iters: int) -> _Params:
+    """The kernels' scalar parameters (shared with B4)."""
+    if check_every < 1 or max_iter < 1:
+        raise ValueError("check_every and max_iter must be >= 1")
+    return _Params(n=n, m=m, max_iter=max_iter, check_every=check_every,
+                   refine_steps=refine_steps,
+                   rescue_max_iter=rescue_max_iter,
+                   ns_max_iters=ns_max_iters, n_pad=_n_pad(n), sigma=sigma,
+                   alpha=alpha, one_m_alpha=1.0 - alpha, eps_abs=eps_abs,
+                   eps_rel=eps_rel, rescue_rho_scale=rescue_rho_scale,
+                   rescue_trigger=rescue_trigger, rescue_exit=rescue_exit,
+                   ns_tol=ns_tol)
+
+
+def pack_vectors(q, l, u, rho, D, E, c):
+    """(nvecs (B, 2, n), vecs (B, 5, m), c_inv (B,)) as the kernels read
+    them."""
+    vec = _vec(q, l, u, rho, D, E, c)
+    vecs = torch.stack([vec.l, vec.u, vec.rho, vec.rho_inv, vec.E_inv], 1)
+    nvecs = torch.stack([q, D], 1).contiguous()
+    return nvecs, vecs, vec.c_inv.contiguous()
+
+
+def launch_rescue(p: _Params, P, Kinv, A, nvecs, vecs, c_inv, kpad, x, z, y,
+                  stats, flags, ws) -> None:
+    """The rescue launch over the lanes that ``flags[:, 2]`` marks;
+    ``kpad``: B4's pad scalars of Kinv, or None (B1)."""
+    lib = cuda_build.library()
+    lib.rl_admm_rescue.argtypes = [_Params] + [ctypes.c_void_p] * 13 + [
+        ctypes.c_int, ctypes.c_void_p]
+    lib.rl_admm_rescue.restype = ctypes.c_int
+    Pt = cuda_build.ptr
+    err = lib.rl_admm_rescue(
+        p, Pt(P), Pt(Kinv), Pt(A), Pt(nvecs), Pt(vecs), Pt(c_inv),
+        ctypes.c_void_p(None if kpad is None else kpad.data_ptr()), Pt(x),
+        Pt(z), Pt(y), Pt(stats), Pt(flags), Pt(ws), P.shape[0],
+        cuda_build.stream_ptr())
+    cuda_build.check(err)
+
+
 def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
                  sigma: float, alpha: float, eps_abs: float, eps_rel: float,
                  max_iter: int, check_every: int, refine_steps: int,
@@ -265,19 +320,8 @@ def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
             (E, "E", (Bsz, m)), (c, "c", (Bsz,)), (x0, "x0", (Bsz, n)),
             (z0, "z0", (Bsz, m)), (y0, "y0", (Bsz, m))):
         cuda_build.expect(t, name, shape)
-    if check_every < 1 or max_iter < 1:
-        raise ValueError("check_every and max_iter must be >= 1")
-    p = _Params(n=n, m=m, max_iter=max_iter, check_every=check_every,
-                refine_steps=refine_steps, rescue_max_iter=rescue_max_iter,
-                ns_max_iters=ns_max_iters, n_pad=_n_pad(n), sigma=sigma,
-                alpha=alpha, one_m_alpha=1.0 - alpha, eps_abs=eps_abs,
-                eps_rel=eps_rel, rescue_rho_scale=rescue_rho_scale,
-                rescue_trigger=rescue_trigger, rescue_exit=rescue_exit,
-                ns_tol=ns_tol)
-    vec = _vec(q, l, u, rho, D, E, c)
-    vecs = torch.stack([vec.l, vec.u, vec.rho, vec.rho_inv, vec.E_inv], 1)
-    nvecs = torch.stack([q, D], 1).contiguous()
-    c_inv = vec.c_inv.contiguous()
+    p = params(n, m, **kw)
+    nvecs, vecs, c_inv = pack_vectors(q, l, u, rho, D, E, c)
     x = torch.empty_like(x0)
     z = torch.empty_like(z0)
     y = torch.empty_like(y0)
@@ -297,13 +341,7 @@ def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
     launches.n += 1
     cuda_build.check(err)
     if rescue_max_iter > 0:
-        lib.rl_admm_rescue.argtypes = [_Params] + [ctypes.c_void_p] * 12 + [
-            ctypes.c_int, ctypes.c_void_p]
-        lib.rl_admm_rescue.restype = ctypes.c_int
-        err = lib.rl_admm_rescue(p, Pt(P), Pt(Kinv), Pt(A), Pt(nvecs),
-                                 Pt(vecs), Pt(c_inv), Pt(x), Pt(z), Pt(y),
-                                 Pt(stats), Pt(flags), Pt(ws), Bsz,
-                                 cuda_build.stream_ptr())
-        cuda_build.check(err)
+        launch_rescue(p, P, Kinv, A, nvecs, vecs, c_inv, None, x, z, y,
+                      stats, flags, ws)
     return (x, y, stats[:, 0], stats[:, 1], flags[:, 0], flags[:, 1] != 0,
             flags[:, 2] != 0)

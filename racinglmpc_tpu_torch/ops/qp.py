@@ -18,11 +18,17 @@ Stages (reference ``qp.py`` line ranges in brackets):
 - K = P + sigma I + A' rho A and its Newton-Schulz inverse with the
   12-step power-iteration warm gate and the unconditional final squaring
   [185-300]; these are plain float32 GEMMs (``torch.matmul``, TF32 off),
-  as the reference leaves them to XLA;
+  as the reference leaves them to XLA. With an FTOCP ``structure`` and
+  ``kkt_structured`` the inverse starts from the exact block-tridiagonal
+  build (``ops/kkt_band.structured_kinv``), squared once, and the
+  Newton-Schulz guard verifies it [544-567];
 - the ADMM loop: on CUDA float32 tensors with fixed rho and
   ``use_pallas`` it is the hand-written kernel ``ops/cuda_qp.py`` (B1);
-  otherwise the warmup + adaptive-rho + early-exit chunks + rho-escalation
-  rescue of the reference's XLA path [602-716];
+  with ``pallas_fused_ns`` too (and no structured build, which takes
+  precedence) the K build and the Newton-Schulz refresh move into the
+  kernel as well: ``ops/cuda_qp_fused.py`` (B4) [500-535]; otherwise the
+  warmup + adaptive-rho + early-exit chunks + rho-escalation rescue of the
+  reference's XLA path [602-716];
 - polish (LU, masked active set) and the epilogue [345-382, 725-772].
 """
 from __future__ import annotations
@@ -32,7 +38,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from racinglmpc_tpu_torch.ops import cuda_qp
+from racinglmpc_tpu_torch.ops import cuda_qp, cuda_qp_fused, kkt_band
 from racinglmpc_tpu_torch.utils.batched import lane_where as _w
 from racinglmpc_tpu_torch.utils.batched import mv as _mv
 from racinglmpc_tpu_torch.utils.batched import vm as _vm
@@ -376,12 +382,23 @@ def use_kernel(cfg: SolverConfig, qp: QPData) -> bool:
             and (qp.q.is_cuda or cfg.pallas_interpret))
 
 
-def admm_inputs(qp: QPData, cfg: SolverConfig, warm=None, fac=None):
+def admm_inputs(qp: QPData, cfg: SolverConfig, warm=None, fac=None,
+                structure=None):
     """The kernel path's prologue: returns (prologue, Kinv1, ns_resid1),
-    i.e. exactly what :func:`solve` hands to ``cuda_qp.admm_iterate``."""
+    i.e. exactly what :func:`solve` hands to ``cuda_qp.admm_iterate``.
+    With ``structure`` and ``cfg.kkt_structured`` the inverse is the
+    structured build, squared once, then guarded by ``_ns_inverse`` (whose
+    final squaring is the second one)."""
     pro = _prologue(qp, cfg, warm, fac)
     K1 = _build_K(pro.qp_s, pro.rho0, cfg.sigma)
-    Kinv1, ns_resid1 = _ns_inverse(K1, pro.kinv0, pro.warm_ok, pro.ns_tol,
+    if structure is not None and cfg.kkt_structured:
+        X_st = kkt_band.structured_kinv(K1, structure)
+        eye = torch.eye(K1.shape[-1], dtype=K1.dtype, device=K1.device)
+        X_st = X_st + X_st @ (eye - K1 @ X_st)
+        X0, warm_ok = X_st, torch.ones_like(pro.warm_ok)
+    else:
+        X0, warm_ok = pro.kinv0, pro.warm_ok
+    Kinv1, ns_resid1 = _ns_inverse(K1, X0, warm_ok, pro.ns_tol,
                                    cfg.ns_max_iters,
                                    staged=cfg.ns_staged_precision)
     return pro, Kinv1, ns_resid1
@@ -406,31 +423,61 @@ def kernel_args(pro: _Prologue, Kinv1, cfg: SolverConfig) -> dict:
     )
 
 
+def fused_args(pro: _Prologue, cfg: SolverConfig) -> dict:
+    """Keyword arguments of ``cuda_qp_fused.admm_iterate_fused``."""
+    s = pro.qp_s
+    return dict(
+        P=s.P.contiguous(), A=s.A.contiguous(), kinv0=pro.kinv0.contiguous(),
+        warm_ok=pro.warm_ok.contiguous(), q=s.q.contiguous(),
+        l=s.l.contiguous(), u=s.u.contiguous(), rho=pro.rho0.contiguous(),
+        D=pro.D.contiguous(), E=pro.E.contiguous(), c=pro.c.contiguous(),
+        x0=pro.x.contiguous(), z0=pro.z.contiguous(), y0=pro.y.contiguous(),
+        sigma=cfg.sigma, alpha=cfg.alpha, eps_abs=cfg.eps_abs,
+        eps_rel=cfg.eps_rel, max_iter=cfg.max_iter,
+        check_every=cfg.check_every, refine_steps=cfg.kkt_refine_steps,
+        ns_tol=float(pro.ns_tol), ns_max_iters=cfg.ns_max_iters,
+        rescue_max_iter=cfg.rescue_max_iter,
+        rescue_rho_scale=cfg.rescue_rho_scale,
+        rescue_trigger=cfg.rescue_trigger, rescue_exit=cfg.rescue_exit,
+    )
+
+
+def fused_inputs(qp: QPData, cfg: SolverConfig, warm=None,
+                 fac=None) -> dict:
+    """Keyword arguments of ``cuda_qp_fused.admm_iterate_fused`` for this
+    solve: exactly what :func:`solve`'s fused branch hands to it."""
+    return fused_args(_prologue(qp, cfg, warm, fac), cfg)
+
+
 def solve(qp: QPData, cfg: SolverConfig = SolverConfig(), warm=None,
           fac: Optional[FactorCache] = None, structure=None) -> QPSolution:
     """Solve a batch of QPs. ``warm``: (x, y) in original coordinates;
     ``fac``: the previous solve's :class:`FactorCache`; ``structure``: the
-    FTOCP's ``kkt_band.BandStructure`` (read only by the structured KKT
-    inverse, which is not ported yet)."""
-    if structure is not None and cfg.kkt_structured:
-        raise NotImplementedError(
-            "kkt_structured: the structured KKT inverse (ops/kkt_band."
-            "structured_kinv) is ROADMAP item 10; use kkt_structured=False")
+    FTOCP's ``kkt_band.BandStructure``, read by the structured KKT inverse
+    when ``cfg.kkt_structured`` (which then takes precedence over the
+    fused-prologue kernel, as in the reference)."""
     kernel = use_kernel(cfg, qp)
-    if kernel and cfg.pallas_fused_ns:
-        raise NotImplementedError(
-            "pallas_fused_ns: the fused-prologue ADMM kernel (B4) is not "
-            "ported yet (ROADMAP queue B)")
     if kernel and cfg.pallas_iter_precision != "highest":
         raise NotImplementedError(
-            "the CUDA ADMM kernel iterates in full float32 only "
+            "the CUDA ADMM kernels iterate in full float32 only "
             "(pallas_iter_precision='highest')")
+    use_structured = structure is not None and cfg.kkt_structured
 
     orig = qp
     dt = qp.q.dtype
     total = cfg.max_iter
     sigma, alpha = cfg.sigma, cfg.alpha
-    pro, Kinv1, ns_resid1 = admm_inputs(qp, cfg, warm, fac)
+    if kernel and cfg.pallas_fused_ns and not use_structured:
+        pro = _prologue(qp, cfg, warm, fac)
+        r = cuda_qp_fused.admm_iterate_fused(**fused_args(pro, cfg))
+        D, E, c = pro.D, pro.E, pro.c
+        return _finish(orig, cfg, x_u=D * r.x, y_u=E * r.y / c[:, None],
+                       solved=r.solved, iters=r.iters, kinv=r.kinv,
+                       ns_resid=r.ns_resid, pre=(r.pri, r.dua), is_eq=pro.is_eq,
+                       D=D, E=E, c=c, age=pro.age, ns_tol=pro.ns_tol,
+                       keep_kinv=pro.keep_kinv)
+    pro, Kinv1, ns_resid1 = admm_inputs(
+        qp, cfg, warm, fac, structure if use_structured else None)
     qp_s, D, E, c = pro.qp_s, pro.D, pro.E, pro.c
     common = dict(is_eq=pro.is_eq, D=D, E=E, c=c, age=pro.age,
                   ns_tol=pro.ns_tol, keep_kinv=pro.keep_kinv)

@@ -9,6 +9,7 @@ hand-written CUDA kernels:
 - ``SimConfig.use_pallas_rollout``  -> ``ops/cuda_rollout.py`` (B3)
 - ``LMPCConfig.use_pallas_sysid``   -> ``ops/cuda_sysid.py``   (B2)
 - ``SolverConfig.use_pallas``       -> ``ops/cuda_qp.py``      (B1)
+- ``SolverConfig.pallas_fused_ns``  -> ``ops/cuda_qp_fused.py`` (B4)
 
 and ``*_interpret`` engages the kernel path on CPU tensors, where every
 kernel wrapper runs its plain PyTorch version.
@@ -64,7 +65,7 @@ class SimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MPCConfig:
-    """LTI/LTV-MPC tuning (those stages are not ported yet)."""
+    """LTI/LTV-MPC tuning."""
 
     N: int = 14
     vt: float = 0.8
@@ -185,7 +186,7 @@ class SolverConfig:
     @classmethod
     def throughput_max(cls) -> "SolverConfig":
         """:meth:`throughput` with the structured block-tridiagonal KKT
-        inverse (not ported yet: ROADMAP item 10)."""
+        inverse (``ops/kkt_band.structured_kinv``)."""
         return dataclasses.replace(cls.throughput(), kkt_structured=True)
 
     @classmethod

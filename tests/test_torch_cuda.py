@@ -14,11 +14,13 @@ import torch
 
 from racinglmpc_tpu_torch.controllers import lmpc as lmpc_mod
 from racinglmpc_tpu_torch.models import sysid
-from racinglmpc_tpu_torch.models.track import track_table
-from racinglmpc_tpu_torch.ops import cuda_qp, cuda_rollout, cuda_sysid
+from racinglmpc_tpu_torch.models.track import make_track, track_table
+from racinglmpc_tpu_torch.ops import (cuda_qp, cuda_qp_fused, cuda_rollout,
+                                      cuda_sysid)
 from racinglmpc_tpu_torch.ops import qp as qp_mod
-from racinglmpc_tpu_torch.runtime import main_path
-from racinglmpc_tpu_torch.utils.config import VehicleParams
+from racinglmpc_tpu_torch.runtime import experiment as exp
+from racinglmpc_tpu_torch.runtime import main_path, stage_path
+from racinglmpc_tpu_torch.utils.config import SolverConfig, VehicleParams
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -82,3 +84,51 @@ def test_admm_matches_plain(setup):
         assert bool(k[5].all()) or scfg is fixed
     with pytest.raises(ValueError, match="contiguous"):
         cuda_qp.admm_iterate(args[0].transpose(1, 2), *args[1:], **kw)
+
+
+FUSED_NAMES = ("P", "A", "kinv0", "warm_ok", "q", "l", "u", "rho", "D", "E",
+               "c", "x0", "z0", "y0")
+
+
+@pytest.fixture(scope="module")
+def stages():
+    """A 150-step PID, LTI and LTV run at batch 16 with the fused kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    solver = dataclasses.replace(SolverConfig.throughput(),
+                                 pallas_fused_ns=True)
+    cfg = exp.ExperimentConfig(stage_steps=150, solver=solver)
+    trk = make_track(device="cuda")
+    cuda_qp.launches.reset()
+    cuda_qp_fused.launches.reset()
+    res = exp.run_experiment(cfg, batch=B, stages="pid,lti,ltv", trk=trk)
+    assert cuda_qp_fused.launches.n > 0 and cuda_qp.launches.n == 0
+    return cfg, trk, res
+
+
+@pytest.mark.parametrize("stage", ["lti", "ltv"])
+def test_fused_admm_matches_plain(stages, stage):
+    """B4 on the stage's FTOCPs (LTI: warm cache; LTV: cold build)."""
+    cfg, trk, res = stages
+    f = stage_path.stage_ftocps(res, cfg, stage, trk)
+    fixed = dataclasses.replace(cfg.solver, eps_abs=0.0, eps_rel=0.0,
+                                max_iter=16, check_every=16,
+                                rescue_max_iter=0)
+    for scfg in (fixed, cfg.solver):
+        kw = qp_mod.fused_inputs(f.qp, scfg, f.warm, f.fac)
+        args = [kw.pop(n) for n in FUSED_NAMES]
+        k = cuda_qp_fused.admm_iterate_fused(*args, **kw)
+        p = cuda_qp_fused.admm_iterate_fused_plain(*args, **kw)
+        assert float((k.x - p.x).abs().max()) < 3e-2
+        assert bool((k.warm == p.warm).all())
+        # LTI's constant K contracts the warm start; LTV's drift does not
+        assert bool(k.warm.float().mean() > 0.5) == (stage == "lti")
+        assert float(k.ns_resid.max()) < kw["ns_tol"]
+        if scfg is not fixed:
+            assert int(k.solved.sum()) >= 0.9 * B
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_qp_fused.admm_iterate_fused(args[0].transpose(1, 2), *args[1:],
+                                         **kw)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_qp_fused.admm_iterate_fused(*args[:5], args[5][:, :-1],
+                                         *args[6:], **kw)

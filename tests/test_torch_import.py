@@ -33,6 +33,18 @@ def test_import_leaves_jax_out():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_slice_modules_are_covered():
+    """The modules of the four-stage slice are among those imported
+    above (and so checked for JAX)."""
+    mods = set(_modules())
+    for m in ("controllers.mpc", "ops.cuda_qp_fused", "ops.kkt_band",
+              "runtime.checkpoint", "runtime.metrics", "runtime.presets",
+              "runtime.experiment"):
+        assert f"racinglmpc_tpu_torch.{m}" in mods, m
+    assert (PKG / "csrc" / "cuda_qp_fused.cu").exists()
+    assert (PKG / "csrc" / "qp_common.cuh").exists()
+
+
 def test_sources_do_not_name_jax():
     pat = re.compile(r"^\s*(import jax|from jax|import racinglmpc_tpu\b|"
                      r"from racinglmpc_tpu[ .])", re.M)

@@ -134,5 +134,5 @@ def test_pid_stage_matches_reference():
                                atol=1e-7)
     np.testing.assert_allclose(tres.pid.x_glob.numpy(),
                                np.asarray(jres.pid.x_glob), atol=1e-7)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        texp.run_experiment(stages="pid,lti", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+        texp.run_experiment(stages="pid", device="cpu", mesh=object())
