@@ -15,27 +15,34 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    model_pts=512)``, N=14) seeded from one PID stage of the port's own
    ``run_experiment(stages="pid", batch=1)`` -- for a warm-up chunk and a
    timed chunk of 50 steps, with the launch counters of the three kernels
-   reset just before and read just after (each must be > 0);
+   reset just before and read just after (each must be > 0), and B1's
+   per-layout counters: resident launches > 0 and no scenario streamed;
 3. holds B1-B3 against their plain PyTorch versions on the card at the
    main path's shapes (the FTOCPs, lap store and plant states of the batch
    just driven): rollout |dx| < 1e-4, sys-ID |dA|,|dB|,|dC| < 1e-3 (also on
-   a ragged store with an empty lap), ADMM |dx| < 3e-2 after 16 fixed
+   a ragged store with an empty lap); B1 in both of its layouts (resident:
+   Kinv and the compressed A and P in shared memory; stream: the matrices
+   read from global memory in every product): |dx| < 3e-2 after 16 fixed
    iterations, >= 90% solved at tolerance, and a forced rho-escalation
    rescue with the same rescued flags and iteration counts as the plain
-   version; times each (CUDA events, median of 20 launches after warm-up);
+   version on every lane; bit-identical results from two resident calls
+   and from the two layouts; the shared-memory plan against the kernel
+   source's count; times each kernel (CUDA events, median of 20 launches
+   after warm-up; B1's layouts in turns: resident, stream, stream,
+   resident);
 4. runs the closed loop ``run_experiment(stages="pid,lti,ltv,lmpc",
-   n_lmpc_laps=4, batch=4)`` and requires every lap finished, no NaN and a
-   first->last lap improvement above 15%;
+   n_lmpc_laps=4, batch=4)`` and requires every lap finished, no NaN, a
+   first->last lap improvement above 15% and no scenario streamed;
 5. runs the MPC stages through ``runtime/presets.run_preset``:
    ``config2_lti`` (batch 64) and ``config3_ltv`` (batch 256), 450 steps
    each, with the preset's ``throughput()`` solver, each with
    ``pallas_fused_ns=True`` (counters reset before, read after: B4 > 0 and
-   B1 = 0) and without (B1 > 0), then ``config3_ltv`` with
-   ``throughput_max()`` (the structured KKT build); the plant steps through
-   the rollout kernel B3. Each stage must hold on >= 99% of its scenarios
-   (LTI: mean vx over steps 300+ within 0.12 of 0.8, |ey| < 0.5; LTV: final
-   s > 14.0, |ey| < 0.5) with no NaN; prints stage wall, steps/s and the
-   accepted share of the solves;
+   B1 = 0) and without (B1 > 0), no scenario streamed by either, then
+   ``config3_ltv`` with ``throughput_max()`` (the structured KKT build);
+   the plant steps through the rollout kernel B3. Each stage must hold on
+   >= 99% of its scenarios (LTI: mean vx over steps 300+ within 0.12 of
+   0.8, |ey| < 0.5; LTV: final s > 14.0, |ey| < 0.5) with no NaN; prints
+   stage wall, steps/s and the accepted share of the solves;
 6. holds B4 against its plain version on those stages' FTOCPs -- the LTI
    stage's with their warm cache (batch 64) and the LTV stage's cold build
    (batch 256): |dx| < 3e-2 after 16 fixed iterations, >= 90% solved at
@@ -102,6 +109,27 @@ def nbytes(*ts):
     return float(sum(t.numel() * t.element_size() for t in ts))
 
 
+def count(c):
+    """A launch counter's launches or a scenario counter's scenarios."""
+    return c.n if hasattr(c, "n") else c.value()
+
+
+def admm_ops(torch, P, A, n, m, iters, refine, check_every):
+    """Operations the ADMM loop's work needs on these inputs, per scenario:
+    per iteration 1 + refine passes over the dense Kinv, 2 + 2 refine
+    sparse products with A and refine with P (2 operations per nonzero),
+    30 (n + m) elementwise; per check (the entry check and one per chunk)
+    one product with A each way and one with P."""
+    nnz_a = (A != 0).sum((1, 2)).double()
+    nnz_p = (P != 0).sum((1, 2)).double()
+    per_iter = (2.0 * n * n * (1 + refine) + 2.0 * nnz_a * (2 + 2 * refine)
+                + 2.0 * nnz_p * refine + 30.0 * (n + m))
+    per_check = 4.0 * nnz_a + 2.0 * nnz_p + 20.0 * (n + m)
+    iters = iters.double()
+    checks = 1 + torch.ceil(iters / check_every)
+    return iters * per_iter + checks * per_check
+
+
 FUSED_NAMES = ("P", "A", "kinv0", "warm_ok", "q", "l", "u", "rho", "D", "E",
                "c", "x0", "z0", "y0")
 STAGE_RUNS = (("config2_lti", "fused"), ("config2_lti", "base"),
@@ -149,8 +177,9 @@ class SolveTally:
 
 
 def stage_runs(torch, qp_mod, counters, cuda_qp, cuda_qp_fused):
-    """Phase 5: each preset run of STAGE_RUNS with the counters reset just
-    before and read just after."""
+    """Phase 5: each preset run of STAGE_RUNS with the counters (kernels,
+    B1's layouts, streamed scenarios) reset just before and read just
+    after."""
     from racinglmpc_tpu_torch.runtime import presets
     from racinglmpc_tpu_torch.utils.config import SolverConfig
 
@@ -167,7 +196,7 @@ def stage_runs(torch, qp_mod, counters, cuda_qp, cuda_qp_fused):
             c.reset()
         with SolveTally(torch, qp_mod) as tally:
             out = presets.run_preset(name, cfg=cfg, device="cuda")
-        launches = {c.name: c.n for c in counters}
+        launches = {c.name: count(c) for c in counters}
         res = out["result"]
         stage = "lti" if name == "config2_lti" else "ltv"
         ok = stage_ok(torch, getattr(res, stage).x, stage)
@@ -183,6 +212,10 @@ def stage_runs(torch, qp_mod, counters, cuda_qp, cuda_qp_fused):
               f"launches {launches}")
         tag = f"{name}_{variant}"
         check(f"{tag}_criteria_99pct", share >= 0.99)
+        check(f"{tag}_no_scenario_streamed",
+              launches["admm_streamed"] == 0
+              and launches["fused_admm_streamed"] == 0
+              and launches["admm_stream"] == 0)
         if variant == "fused":
             check(f"{tag}_launched_fused_admm",
                   launches["fused_admm"] > 0 and launches["admm"] == 0,
@@ -244,14 +277,17 @@ def fused_phase(torch, qp_mod, cuda_qp_fused, runs, trk, launches):
             *args, **kw))
         pms = time_ms(torch, lambda: cuda_qp_fused.admm_iterate_fused_plain(
             *args, **kw))
-        per_iter = 6.0 * n * n + 8.0 * m * n + 30.0 * (n + m)
-        per_check = 2.0 * n * n + 4.0 * m * n + 20.0 * (n + m)
-        iters = k.iters.double()
-        checks = 1 + torch.ceil(iters / cfg.solver.check_every)
-        ops = float((2.0 * m * n * n
-                     + a["warm_ok"].double() * 2.0 * n ** 3
+        # K = A'(rho A) + P + sigma I from A's nonzeros (2 nnz(row)^2 per
+        # row), the warm guard and the Newton-Schulz GEMMs dense, then the
+        # ADMM loop's count on these inputs
+        row = (a["A"] != 0).sum(2).double()
+        k_build = (2.0 * (row * row).sum(1) + (a["P"] != 0).sum((1, 2))
+                   + n)
+        ops = float((k_build + a["warm_ok"].double() * 2.0 * n ** 3
                      + p.ns_iters.double() * 4.0 * n ** 3
-                     + iters * per_iter + checks * per_check).sum())
+                     + admm_ops(torch, a["P"], a["A"], n, m, k.iters,
+                                kw["refine_steps"],
+                                cfg.solver.check_every)).sum())
         bms, by = bound_ms(nbytes(*args, k.x, k.y, k.pri, k.dua, k.iters,
                                   k.kinv, k.ns_resid), ops)
         print(f"[chip_smoke] kernel fused_admm ({stage}, batch {B}): "
@@ -308,6 +344,9 @@ def main() -> int:
     B, STEPS = 256, 50
     counters = (cuda_qp.launches, cuda_sysid.launches, cuda_rollout.launches,
                 cuda_qp_fused.launches)
+    # B1's launches per layout and the scenarios B1 and B4 streamed
+    layouts = (*cuda_qp.layout_launches.values(), cuda_qp.streamed,
+               cuda_qp_fused.streamed)
 
     # ---- phase 1: device, build ------------------------------------------
     smi = subprocess.run(
@@ -320,7 +359,8 @@ def main() -> int:
     build = cuda_build.build()
     print(f"[chip_smoke] kernel build {build.seconds:.1f} s -> {build.path}")
     for line in build.log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line or "entry function" in line
+                or line.startswith("==")):
             print(f"[chip_smoke]   {line.strip()}")
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
@@ -339,7 +379,7 @@ def main() -> int:
     check("pid_stage_used_rollout_kernel", cuda_rollout.launches.n > 0)
     cfg, trk, table, vp, ctrl = mp.cfg, mp.trk, mp.table, mp.vp, mp.ctrl
 
-    for c in counters:
+    for c in counters + layouts:
         c.reset()
     t0 = time.time()
     state, plant = main_path.run_chunk(mp, state, plant, STEPS)[:2]
@@ -352,6 +392,7 @@ def main() -> int:
     torch.cuda.synchronize()
     dt_chunk = time.time() - t0
     launches = {c.name: c.n for c in counters}
+    lay = {c.name: count(c) for c in layouts}
     it = iters.float().cpu()
     solves = B * STEPS
     sps = solves / dt_chunk
@@ -361,10 +402,13 @@ def main() -> int:
           f"{float(it.mean()):.2f} p50 {float(it.quantile(0.5)):.0f} "
           f"p99 {float(it.quantile(0.99)):.0f}, rejected {int(rej)}, "
           f"not solved to tolerance {unc_n} of {solves}, launches "
-          f"{launches}")
+          f"{launches}, B1 layouts and streamed scenarios {lay}")
     for name, n in launches.items():
         if name != "fused_admm":      # B4 is off on the main path
             check(f"main_path_launched_{name}", n > 0, f"({n})")
+    check("main_path_admm_resident_no_scenario_streamed",
+          lay["admm_resident"] > 0 and lay["admm_stream"] == 0
+          and lay["admm_streamed"] == 0, f"({lay})")
     check("main_path_solved_90pct", unc_n <= 0.1 * solves,
           f"({solves - unc_n}/{solves})")
     check("main_path_finite", bool(torch.isfinite(plant.x).all()))
@@ -441,54 +485,90 @@ def main() -> int:
         kw = qp_mod.kernel_args(pro, Kinv1, scfg)
         return [kw.pop(n) for n in names], kw
 
+    n, m = qp.q.shape[1], qp.l.shape[1]
+    plan = cuda_qp.choose_layout(n, m)
+    card_bytes = cuda_qp.smem_bytes_on_card(n, m, plan)
+    card_ctas = {name: cuda_qp.ctas_per_sm_on_card(n, m, cuda_qp.pick_layout(
+        n, m, name)) for name in cuda_qp.LAYOUTS}
+    print(f"[chip_smoke] B1 plan at n={n}, m={m}: {plan}; kernel source "
+          f"{card_bytes} B; CTAs per SM on the card {card_ctas}")
+    check("admm_plan_matches_kernel_source",
+          plan.name == "resident" and card_bytes == plan.nbytes
+          and card_ctas["resident"] == 1,
+          "(one resident CTA per SM: shared memory and registers)")
     fixed = dataclasses.replace(cfg.solver, eps_abs=0.0, eps_rel=0.0,
                                 max_iter=16, check_every=16,
                                 rescue_max_iter=0)
-    args, kw = admm_args(fixed, state.fac)
-    k = cuda_qp.admm_iterate(*args, **kw)
-    p = cuda_qp.admm_iterate_plain(*args, **kw)
-    err_b1 = float((k[0] - p[0]).abs().max())
-    check("admm_fixed16_vs_plain", err_b1 < 3e-2, f"(max |dx| {err_b1:.2e})")
-
+    f_args, f_kw = admm_args(fixed, state.fac)
     args, kw = admm_args(cfg.solver, state.fac)
-    k = cuda_qp.admm_iterate(*args, **kw)
-    p = cuda_qp.admm_iterate_plain(*args, **kw)
-    n_ok = int(k[5].sum())
-    check("admm_tolerance_solves_batch", n_ok >= 0.9 * B,
-          f"(solved {n_ok}/{B}; plain {int(p[5].sum())}/{B}; iters mean "
-          f"kernel {float(k[4].float().mean()):.2f} plain "
-          f"{float(p[4].float().mean()):.2f})")
-    ms = time_ms(torch, lambda: cuda_qp.admm_iterate(*args, **kw))
-    pms = time_ms(torch, lambda: cuda_qp.admm_iterate_plain(*args, **kw))
-    n, m = qp.q.shape[1], qp.l.shape[1]
-    per_iter = 6.0 * n * n + 8.0 * m * n + 30.0 * (n + m)
-    per_check = 2.0 * n * n + 4.0 * m * n + 20.0 * (n + m)
-    iters_b = k[4].double()
-    checks = 1 + torch.ceil(iters_b / cfg.solver.check_every)
-    ops = float((iters_b * per_iter + checks * per_check).sum())
-    bms, by = bound_ms(nbytes(*args, k[0], k[1], k[2], k[3], k[4]), ops)
-
     rescue_cfg = dataclasses.replace(
         cfg.solver, rho=1e-4, rho_eq_scale=1.0, max_iter=40,
         check_every=10, scaling_iters=0, eps_abs=1e-4, eps_rel=1e-4,
         rescue_max_iter=400, rescue_rho_scale=100.0)
     r_args, r_kw = admm_args(rescue_cfg, None)
-    kr = cuda_qp.admm_iterate(*r_args, **r_kw)
+    pf = cuda_qp.admm_iterate_plain(*f_args, **f_kw)
+    p = cuda_qp.admm_iterate_plain(*args, **kw)
     pr = cuda_qp.admm_iterate_plain(*r_args, **r_kw)
-    same_flags = bool((kr[6] == pr[6]).all())
-    same_iters = float((kr[4] == pr[4]).float().mean())
-    check("admm_forced_rescue", bool(kr[6].all()) and same_flags
-          and same_iters == 1.0,
-          f"(rescued {int(kr[6].sum())}/{B}, flags equal {same_flags}, "
-          f"iteration counts equal on {100 * same_iters:.1f}% of lanes, "
-          f"rescued-lane iters mean kernel {float(kr[4].float().mean()):.1f} "
-          f"plain {float(pr[4].float().mean()):.1f})")
+    err_b1, outs = {}, {}
+    for name in cuda_qp.LAYOUTS:
+        cuda_qp.streamed.reset()
+        k = cuda_qp.admm_iterate(*f_args, **f_kw, layout=name)
+        err_b1[name] = float((k[0] - pf[0]).abs().max())
+        check(f"admm_{name}_fixed16_vs_plain", err_b1[name] < 3e-2,
+              f"(max |dx| {err_b1[name]:.2e})")
+        k = cuda_qp.admm_iterate(*args, **kw, layout=name)
+        n_ok = int(k[5].sum())
+        check(f"admm_{name}_tolerance_solves_batch", n_ok >= 0.9 * B,
+              f"(solved {n_ok}/{B}; plain {int(p[5].sum())}/{B}; iters mean "
+              f"kernel {float(k[4].float().mean()):.2f} plain "
+              f"{float(p[4].float().mean()):.2f}, max kernel "
+              f"{int(k[4].max())} plain {int(p[4].max())}; rescued kernel "
+              f"{int(k[6].sum())} plain {int(p[6].sum())})")
+        kr = cuda_qp.admm_iterate(*r_args, **r_kw, layout=name)
+        outs[name] = (k, kr)
+        same_flags = bool((kr[6] == pr[6]).all())
+        same_iters = float((kr[4] == pr[4]).float().mean())
+        check(f"admm_{name}_forced_rescue", bool(kr[6].all()) and same_flags
+              and same_iters == 1.0,
+              f"(rescued {int(kr[6].sum())}/{B}, flags equal {same_flags}, "
+              f"iteration counts equal on {100 * same_iters:.1f}% of lanes, "
+              f"rescued-lane iters mean kernel "
+              f"{float(kr[4].float().mean()):.1f} plain "
+              f"{float(pr[4].float().mean()):.1f})")
+        want = 0 if name == "resident" else 3 * B
+        check(f"admm_{name}_streamed_scenarios",
+              cuda_qp.streamed.value() == want,
+              f"({cuda_qp.streamed.value()}, expected {want})")
+    k = cuda_qp.admm_iterate(*args, **kw)
+    k2 = cuda_qp.admm_iterate(*args, **kw)
+    check("admm_resident_same_bits_twice",
+          all(bool(torch.equal(a, b)) for a, b in zip(k, k2)))
+    check("admm_resident_same_bits_as_stream", all(
+        bool(torch.equal(a, b)) for r, s in zip(outs["resident"],
+                                                 outs["stream"])
+        for a, b in zip(r, s)), "(at tolerance and under the forced rescue)")
+    times = {name: [] for name in cuda_qp.LAYOUTS}
+    for name in ("resident", "stream", "stream", "resident"):
+        times[name].append(time_ms(torch, lambda: cuda_qp.admm_iterate(
+            *args, **kw, layout=name)))
+    ms = statistics.mean(times["resident"])
+    stream_ms = statistics.mean(times["stream"])
+    pms = time_ms(torch, lambda: cuda_qp.admm_iterate_plain(*args, **kw))
+    ops = float(admm_ops(torch, args[0], args[2], n, m, k[4],
+                         kw["refine_steps"], cfg.solver.check_every).sum())
+    bms, by = bound_ms(nbytes(*args, k[0], k[1], k[2], k[3], k[4]), ops)
+    print(f"[chip_smoke] kernel admm layouts in turns (resident, stream, "
+          f"stream, resident): {times}; bound {bms:.4f} ms by {by} "
+          f"({ops / B:.0f} operations per scenario, nnz(A) mean "
+          f"{float((args[2] != 0).sum((1, 2)).float().mean()):.1f}, nnz(P) "
+          f"mean {float((args[0] != 0).sum((1, 2)).float().mean()):.1f})")
     kernels.append(dict(
         name="admm", route="cuda",
         source="racinglmpc_tpu_torch/csrc/cuda_qp.cu",
         replaces="racinglmpc_tpu/ops/pallas_qp.py:391",
-        launches=launches["admm"], max_abs_err=err_b1, ms=ms, plain_ms=pms,
-        bound_ms=bms, bound_by=by, library_ms=None))
+        launches=launches["admm"], max_abs_err=max(err_b1.values()), ms=ms,
+        plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None,
+        resident_ms=ms, stream_ms=stream_ms))
     for kinfo in kernels:
         print(f"[chip_smoke] kernel {kinfo['name']}: {kinfo['ms']:.4f} ms "
               f"(plain {kinfo['plain_ms']:.4f} ms, bound "
@@ -502,7 +582,7 @@ def main() -> int:
         sim=SimConfig(use_pallas_rollout=True),
         lmpc=LMPCConfig(max_laps=10, max_pts=1024, model_pts=512,
                         use_pallas_sysid=True))
-    for c in counters:
+    for c in counters + layouts:
         c.reset()
     t0 = time.time()
     res = exp.run_experiment(loop_cfg, batch=4, stages="pid,lti,ltv,lmpc",
@@ -515,17 +595,22 @@ def main() -> int:
     print(f"[chip_smoke] closed loop ({time.time() - t0:.1f} s, stage walls "
           f"{walls} s): lap steps {res.lap_steps.tolist()}, lap times "
           f"{res.lap_times.tolist()}, launches "
-          f"{dict((c.name, c.n) for c in counters)}")
+          f"{dict((c.name, count(c)) for c in counters + layouts)}")
     check("closed_loop_laps_finished", bool((res.lap_steps < 500).all()))
     check("closed_loop_improves_15pct", gain > 0.15,
           f"(first->last mean lap steps {100 * gain:.1f}%)")
     check("closed_loop_finite", finite)
     check("closed_loop_used_kernels",
           all(c.n > 0 for c in counters if c.name != "fused_admm"))
+    check("closed_loop_admm_resident_no_scenario_streamed",
+          cuda_qp.layout_launches["resident"].n > 0
+          and cuda_qp.layout_launches["stream"].n == 0
+          and cuda_qp.streamed.value() == 0)
     loop_steps = res.lap_steps
 
     # ---- phase 5: the MPC stages through the presets ----------------------
-    runs = stage_runs(torch, qp_mod, counters, cuda_qp, cuda_qp_fused)
+    runs = stage_runs(torch, qp_mod, counters + layouts, cuda_qp,
+                      cuda_qp_fused)
     fused_launches = sum(r["launches"]["fused_admm"] for r in runs.values()
                          if r["fused"])
 

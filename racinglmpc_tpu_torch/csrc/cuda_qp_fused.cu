@@ -16,49 +16,66 @@
 //   then B1's ADMM loop on the refreshed X. Lanes that need the
 //   rho-escalation rescue are handled by B1's rescue launch
 //   (cuda_qp.cu:admm_rescue), given the refreshed X and its pad scalars.
-// Outputs: x, z, y, (pri, dua), (iters, done, needs-rescue), the refreshed
-// inverse, ns_resid (the residual before the last update), the pad scalar,
-// and (warm start taken, Newton-Schulz iterations) for diagnostics.
+// Outputs: x, z, y, (pri, dua), (iters, done, needs-rescue, streamed), the
+// refreshed inverse, ns_resid (the residual before the last update), the pad
+// scalar, and (warm start taken, Newton-Schulz iterations) for diagnostics.
 //
-// Bound on this card: the prologue's operations, 2 m n^2 for K and 4 n^3
-// per Newton-Schulz iteration (~25-30 on a cold build: ~1 GFLOP per
-// scenario), dominate B1's loop. K and X are 160 KB each at n = 200 and do
-// not fit in shared memory together, so K, X, Y and R live in a
-// per-scenario global workspace (4 n^2 floats, L2-resident per CTA) and the
-// products run as B1's rescue does: one CTA of 512 threads per scenario (each
-// scenario exits its own Newton-Schulz loop and its own ADMM loop, the
-// point of the fused kernel) over a 64x64-tiled float32 GEMM on the CUDA
-// cores. Tensor cores (wgmma in TF32 or split-float32) and TMA are left for
-// later work.
+// Bound on this card: the prologue's operations, 2 m n^2 for K as a dense
+// GEMM (what A's nonzeros need is far less: sum over rows of nnz(row)^2)
+// and 4 n^3 per Newton-Schulz iteration (~20 on a cold LTV build: ~0.25
+// GFLOP per scenario at n = 146), dominate. K and X are 85-160 KB each at
+// n = 146-200 and do not fit in shared memory together, so K, X, Y and R
+// live in a per-scenario global workspace (4 n^2 floats, L2-resident per
+// CTA) and the products run as B1's rescue does: one CTA of 512 threads
+// per scenario (each scenario exits its own Newton-Schulz loop and its own
+// ADMM loop, the point of the fused kernel) over a 64x64-tiled float32
+// GEMM on the CUDA cores, whose tiles overlay the Kinv slot of B1's
+// resident layout. The ADMM phase then runs on B1's resident core: A and
+// P compressed into shared memory at the start (one read), the refreshed
+// X copied into the slot, and the loop reads only shared memory, with the
+// same bits as the streaming core; shapes that do not fit
+// (ops/cuda_qp.py:smem_plan) and scenarios whose nonzeros overflow the
+// cap run the streaming core, flagged and counted. The K build and the
+// Newton-Schulz GEMM (tensor cores, wgmma in split-float32; TMA) are left
+// for later work.
 #include "qp_common.cuh"
 
+template <bool RES>
 __global__ void __launch_bounds__(NT)
 admm_fused(const QPParams p, const float* P_, const float* A_,
            const float* kinv0_, const int* warm_ok, const float* nvecs,
            const float* vecs, const float* cinv, const float* x0,
            const float* z0, const float* y0, float* xo, float* zo, float* yo,
            float* stats, int* flags, float* kinv_out, float* ns_out,
-           float* kpad_out, int* ns_info, float* ws) {
-  extern __shared__ float sm[];
+           float* kpad_out, int* ns_info, float* ws, int* streamed) {
   const int b = blockIdx.x, n = p.n, m = p.m, tid = threadIdx.x;
-  Ctx c = carve(sm, n, m);
-  float* As = sm + ctx_floats(n, m);
-  float* Bs = As + TILE * TK;
-  float* dg = Bs + TILE * TK;
+  unsigned char* smb = dyn_smem();
   const size_t nn = (size_t)n * n;
   const float* P = P_ + (size_t)b * nn;
   const float* A = A_ + (size_t)b * m * n;
+  float *ctxp, *slot;
+  Sparse s;
+  bool fits = false;
+  if (RES) {
+    const Resident L = resident_layout(n, m, p.nnz_cap);
+    ctxp = reinterpret_cast<float*>(smb + L.ctx);
+    slot = reinterpret_cast<float*>(smb + L.slot);
+    s = carve_sparse(smb, L);
+    fits = build_sparse(p, A, P, s, reinterpret_cast<int*>(ctxp));
+    __syncthreads();
+  } else {
+    ctxp = reinterpret_cast<float*>(smb);
+    slot = ctxp + ctx_floats(n, m);
+  }
+  Ctx c = carve(ctxp, n, m);
+  float* As = slot;
+  float* Bs = As + TILE * TK;
+  float* dg = Bs + TILE * TK;
   float* K = ws + (size_t)b * 4 * nn;
   float* X = K + nn;
   float* Y = X + nn;
   float* R = Y + nn;
-  load_vectors(p, c, nvecs + (size_t)b * 2 * n, vecs + (size_t)b * 5 * m);
-  for (int j = tid; j < n; j += NT) c.x[j] = x0[(size_t)b * n + j];
-  for (int i = tid; i < m; i += NT) {
-    c.z[i] = z0[(size_t)b * m + i];
-    c.y[i] = y0[(size_t)b * m + i];
-  }
-  __syncthreads();
+  load_state(p, c, b, nvecs, vecs, x0, z0, y0);
 
   // K = A'(rho A) + P + sigma I and its Jacobi init
   const float cjm = build_k_jacobi(p, c, P, A, 1.f, K, dg, As, Bs);
@@ -93,7 +110,19 @@ admm_fused(const QPParams p, const float* P_, const float* A_,
     ns_info[b * 2 + 0] = use_warm ? 1 : 0;
     ns_info[b * 2 + 1] = it1 + it2;
   }
-  admm_loop(p, c, b, P, A, X, cinv[b], xo, zo, yo, stats, flags);
+  if (RES) {   // X into the slot (the GEMM tiles are done with)
+    for (size_t e = tid; e < nn; e += NT) slot[e] = X[e];
+    __syncthreads();
+    if (fits)
+      admm_loop(p, c, b, SparseOps(s, slot, n, m), cinv[b], false, xo, zo,
+                yo, stats, flags, streamed);
+    else
+      admm_loop(p, c, b, DenseOps{P, A, slot, n, m}, cinv[b], true, xo, zo,
+                yo, stats, flags, streamed);
+  } else {
+    admm_loop(p, c, b, DenseOps{P, A, X, n, m}, cinv[b], true, xo, zo, yo,
+              stats, flags, streamed);
+  }
 }
 
 extern "C" int rl_admm_fused(QPParams p, const float* P, const float* A,
@@ -103,13 +132,24 @@ extern "C" int rl_admm_fused(QPParams p, const float* P, const float* A,
                              const float* z0, const float* y0, float* xo,
                              float* zo, float* yo, float* stats, int* flags,
                              float* kinv_out, float* ns_out, float* kpad_out,
-                             int* ns_info, float* ws, int B, void* stream) {
+                             int* ns_info, float* ws, int* streamed,
+                             int layout, int B, void* stream) {
   if (B <= 0) return 0;
-  const size_t smem = gemm_ctx_floats(p.n, p.m) * sizeof(float);
-  int e = set_smem(reinterpret_cast<const void*>(admm_fused), smem);
+  const bool res = layout == LAYOUT_RESIDENT;
+  const size_t smem = res ? resident_layout(p.n, p.m, p.nnz_cap).total
+                          : gemm_ctx_floats(p.n, p.m) * sizeof(float);
+  const void* fn = res ? reinterpret_cast<const void*>(admm_fused<true>)
+                       : reinterpret_cast<const void*>(admm_fused<false>);
+  int e = set_smem(fn, smem);
   if (e) return e;
-  admm_fused<<<B, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, P, A, kinv0, warm_ok, nvecs, vecs, cinv, x0, z0, y0, xo, zo, yo,
-      stats, flags, kinv_out, ns_out, kpad_out, ns_info, ws);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (res)
+    admm_fused<true><<<B, NT, smem, st>>>(
+        p, P, A, kinv0, warm_ok, nvecs, vecs, cinv, x0, z0, y0, xo, zo, yo,
+        stats, flags, kinv_out, ns_out, kpad_out, ns_info, ws, streamed);
+  else
+    admm_fused<false><<<B, NT, smem, st>>>(
+        p, P, A, kinv0, warm_ok, nvecs, vecs, cinv, x0, z0, y0, xo, zo, yo,
+        stats, flags, kinv_out, ns_out, kpad_out, ns_info, ws, streamed);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,9 @@ started together, for ``sm_90a`` (Hopper); the objects are linked into one
 shared library under ``<repo>/build/kernels/``, named by a hash of the
 sources and flags, so a changed source rebuilds and an unchanged one loads
 the existing library. The build happens at the first kernel launch, never
-at import.
+at import. ``DEFINES`` (empty: the kernels as they run) adds ``-D`` macros
+to the build the wrappers launch, e.g. ``QP_PHASES`` for the ADMM kernels'
+phase clocks (``runtime/admm_bench.py --phases``).
 
 Importing this module turns TF32 off for float32 matmuls and convolutions:
 the ADMM and Newton-Schulz iterations run at cond(K) ~ 1e5-1e6, where
@@ -33,6 +35,7 @@ SOURCES = ("runtime.cu", "cuda_rollout.cu", "cuda_sysid.cu", "cuda_qp.cu",
            "cuda_qp_fused.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+DEFINES: tuple = ()
 
 
 class LaunchCounter:
@@ -46,6 +49,30 @@ class LaunchCounter:
         self.n = 0
 
 
+class ScenarioCounter:
+    """Scenarios a kernel marked (e.g. ran in its streaming layout), summed
+    on the device: the kernel adds one per scenario with an integer atomic,
+    so counting costs no host sync; :meth:`value` reads it (and syncs)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._t = {}
+
+    def tensor(self, device) -> torch.Tensor:
+        """The (1,) int32 counter on ``device`` the kernel adds to."""
+        key = torch.device(device)
+        if key not in self._t:
+            self._t[key] = torch.zeros((1,), dtype=torch.int32, device=key)
+        return self._t[key]
+
+    def reset(self) -> None:
+        for t in self._t.values():
+            t.zero_()
+
+    def value(self) -> int:
+        return sum(int(t.item()) for t in self._t.values())
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -57,8 +84,12 @@ def _nvcc() -> str:
     return path
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+def _flags(defines) -> tuple:
+    return FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _digest(defines) -> str:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for name in sorted(p.name for p in CSRC.iterdir()):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -77,15 +108,15 @@ class Build:
         self.log = log
 
 
-def _compile(out: pathlib.Path) -> str:
+def _compile(out: pathlib.Path, defines) -> str:
     nvcc = _nvcc()
     tmp = out.parent / f".tmp-{os.getpid()}"
     tmp.mkdir(parents=True, exist_ok=True)
     procs = []
     for src in SOURCES:
         obj = tmp / (src + ".o")
-        cmd = [nvcc, *FLAGS, "-I", str(CSRC), "-c", str(CSRC / src),
-               "-o", str(obj)]
+        cmd = [nvcc, *_flags(defines), "-I", str(CSRC), "-c",
+               str(CSRC / src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -112,14 +143,15 @@ def _compile(out: pathlib.Path) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def build() -> Build:
-    """Compile (if needed) and load the kernel library; cached per process."""
+def build(defines: tuple = ()) -> Build:
+    """Compile (if needed) and load the kernel library with ``-D`` macros
+    ``defines``; cached per process."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"libracinglmpc_kernels_{_digest()}.so"
+    out = BUILD_DIR / f"libracinglmpc_kernels_{_digest(defines)}.so"
     t0 = time.time()
     log = ""
     if not out.exists():
-        log = _compile(out)
+        log = _compile(out, defines)
         (BUILD_DIR / "build.log").write_text(log)
     seconds = time.time() - t0 if log else 0.0
     lib = ctypes.CDLL(str(out))
@@ -129,7 +161,7 @@ def build() -> Build:
 
 
 def library() -> ctypes.CDLL:
-    return build().lib
+    return build(DEFINES).lib
 
 
 def check(err: int) -> None:

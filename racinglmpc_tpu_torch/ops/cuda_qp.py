@@ -23,6 +23,19 @@ scenario that returns at once unless its scenario needs the rescue; K2 and
 the Newton-Schulz products are a tiled float32 GEMM written in the kernel,
 with the matrices in a global-memory workspace.
 
+Both launches run the ADMM core in one of two layouts (:func:`smem_plan`,
+:func:`choose_layout`). **Resident**: each CTA copies its Kinv into shared
+memory and compresses the nonzeros of A (CSR and CSC) and P (CSC) beside
+it, reading each matrix once; the loop then reads only shared memory, and
+every product sums in the streaming core's order, so both layouts give
+the same bits.
+**Stream**: the core reads dense P, Kinv and A from global memory in every
+product; it runs where Kinv does not fit beside the vectors, where forced
+(``layout="stream"``, for checks), and, inside a resident launch, for a
+scenario whose nonzeros exceed the plan's cap (:func:`streams` predicts
+which). Every streamed scenario is flagged by the kernel and counted in
+:data:`streamed`; :data:`layout_launches` counts the launches per layout.
+
 Padding: the Pallas kernel pads n to a multiple of 128 with an identity
 pad block in K2 and a zero pad block in the warm start. That block never
 changes the ADMM iterates, but it is part of the rescue's Newton-Schulz
@@ -47,6 +60,88 @@ from racinglmpc_tpu_torch.utils.batched import vm as _vm
 _BIG = 1e30
 _LANE = 128
 launches = cuda_build.LaunchCounter("admm")
+layout_launches = {"resident": cuda_build.LaunchCounter("admm_resident"),
+                   "stream": cuda_build.LaunchCounter("admm_stream")}
+streamed = cuda_build.ScenarioCounter("admm_streamed")
+LAYOUTS = ("resident", "stream")
+
+# shared memory of one H100 SM and the most one CTA may take (bytes), the
+# runtime's reservation per CTA, and the kernels' constants (qp_common.cuh)
+SMEM_PER_SM = 233_472
+SMEM_PER_CTA = 232_448
+SMEM_RESERVED = 1_024
+_NT, _TILE, _TK = 512, 64, 16
+# the least nonzero share of A and P a plan's cap must hold: the main
+# path's FTOCPs hold 1.1%, the MPC stages' 2.0% (LTI)
+MIN_DENSITY = 0.02
+
+
+def _r4(k: int) -> int:
+    return -(-k // 4) * 4
+
+
+def _r16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def ctx_floats(n: int, m: int) -> int:
+    """Floats of a CTA's vector context (qp_common.cuh:ctx_floats)."""
+    return 7 * _r4(n) + 8 * _r4(m) + _NT + 4 * (_NT // 32)
+
+
+def smem_plan(n: int, m: int, nnz_cap: int) -> Tuple[int, int]:
+    """(bytes, CTAs per SM) of the resident layout for an n-variable,
+    m-constraint QP whose A and P together hold at most ``nnz_cap``
+    nonzeros (qp_common.cuh:resident_layout): an 80-byte header (the
+    mbarrier and the list of A's long rows), the context, the Kinv slot
+    (n^2 + 4 floats, at least the rescue's GEMM tiles), then 14 bytes per
+    nonzero (pool and CSC values, pool rows and columns, CSC rows) and the
+    int16 row / column pointers. CTAs per SM counts shared memory alone
+    (0: it does not fit one CTA); the kernel's registers (over 64 per
+    thread) hold the card to one CTA of 512 threads per SM
+    (:func:`ctas_per_sm_on_card`)."""
+    slot = _r4(max(n * n + 4, 2 * _TILE * _TK + _r4(n)))
+    sparse = 14 * nnz_cap + 2 * (m + 1 + 2 * (n + 1))
+    nbytes = 80 + 4 * ctx_floats(n, m) + 4 * slot + _r16(sparse)
+    if nbytes > SMEM_PER_CTA:
+        return nbytes, 0
+    return nbytes, min(SMEM_PER_SM // (nbytes + SMEM_RESERVED), 2048 // _NT)
+
+
+class Layout(NamedTuple):
+    name: str          # "resident" or "stream"
+    nbytes: int        # dynamic shared memory of the main launch
+    ctas_per_sm: int   # by shared memory
+    nnz_cap: int       # nonzeros of A and P a resident CTA holds (0: stream)
+
+
+def _stream_layout(n: int, m: int) -> Layout:
+    return Layout("stream", 4 * ctx_floats(n, m), 0, 0)
+
+
+def choose_layout(n: int, m: int) -> Layout:
+    """The resident layout at the most CTAs per SM (2, else 1) whose cap,
+    the most nonzeros that fit beside Kinv and the vectors (and no more
+    than A and P have entries), holds at least ``MIN_DENSITY`` of A's and
+    P's entries; else the streaming layout."""
+    dense = m * n + n * n
+    floor = math.ceil(MIN_DENSITY * dense)
+    for ctas in (2, 1):
+        budget = min(SMEM_PER_CTA, SMEM_PER_SM // ctas - SMEM_RESERVED)
+        base = smem_plan(n, m, 0)[0]
+        cap = min(max((budget - base) // 14, 0), dense, 32_767)
+        while cap > 0 and smem_plan(n, m, cap)[0] > budget:
+            cap -= 1
+        if cap >= floor and smem_plan(n, m, cap)[1] >= ctas:
+            nbytes, per_sm = smem_plan(n, m, cap)
+            return Layout("resident", nbytes, per_sm, cap)
+    return _stream_layout(n, m)
+
+
+def streams(P, A, nnz_cap: int) -> torch.Tensor:
+    """(B,) bool: the scenarios a resident launch with ``nnz_cap`` runs in
+    the streaming layout (their A and P hold more nonzeros)."""
+    return ((A != 0).sum((1, 2)) + (P != 0).sum((1, 2))) > nnz_cap
 
 
 def _n_pad(n: int) -> int:
@@ -237,7 +332,7 @@ class _Params(ctypes.Structure):
         ("n", ctypes.c_int), ("m", ctypes.c_int), ("max_iter", ctypes.c_int),
         ("check_every", ctypes.c_int), ("refine_steps", ctypes.c_int),
         ("rescue_max_iter", ctypes.c_int), ("ns_max_iters", ctypes.c_int),
-        ("n_pad", ctypes.c_int),
+        ("n_pad", ctypes.c_int), ("nnz_cap", ctypes.c_int),
         ("sigma", ctypes.c_float), ("alpha", ctypes.c_float),
         ("one_m_alpha", ctypes.c_float), ("eps_abs", ctypes.c_float),
         ("eps_rel", ctypes.c_float), ("rescue_rho_scale", ctypes.c_float),
@@ -250,14 +345,16 @@ def params(n: int, m: int, *, sigma: float, alpha: float, eps_abs: float,
            eps_rel: float, max_iter: int, check_every: int,
            refine_steps: int, rescue_max_iter: int, rescue_rho_scale: float,
            rescue_trigger: float, rescue_exit: float, ns_tol: float,
-           ns_max_iters: int) -> _Params:
-    """The kernels' scalar parameters (shared with B4)."""
+           ns_max_iters: int, nnz_cap: int = 0) -> _Params:
+    """The kernels' scalar parameters (shared with B4); ``nnz_cap``: the
+    resident layout's cap (0 in the streaming layout)."""
     if check_every < 1 or max_iter < 1:
         raise ValueError("check_every and max_iter must be >= 1")
     return _Params(n=n, m=m, max_iter=max_iter, check_every=check_every,
                    refine_steps=refine_steps,
                    rescue_max_iter=rescue_max_iter,
-                   ns_max_iters=ns_max_iters, n_pad=_n_pad(n), sigma=sigma,
+                   ns_max_iters=ns_max_iters, n_pad=_n_pad(n),
+                   nnz_cap=nnz_cap, sigma=sigma,
                    alpha=alpha, one_m_alpha=1.0 - alpha, eps_abs=eps_abs,
                    eps_rel=eps_rel, rescue_rho_scale=rescue_rho_scale,
                    rescue_trigger=rescue_trigger, rescue_exit=rescue_exit,
@@ -274,20 +371,52 @@ def pack_vectors(q, l, u, rho, D, E, c):
 
 
 def launch_rescue(p: _Params, P, Kinv, A, nvecs, vecs, c_inv, kpad, x, z, y,
-                  stats, flags, ws) -> None:
-    """The rescue launch over the lanes that ``flags[:, 2]`` marks;
-    ``kpad``: B4's pad scalars of Kinv, or None (B1)."""
+                  stats, flags, ws, layout: str) -> None:
+    """The rescue launch over the lanes that ``flags[:, 2]`` marks, in the
+    main launch's ``layout``; ``kpad``: B4's pad scalars of Kinv, or None
+    (B1)."""
     lib = cuda_build.library()
     lib.rl_admm_rescue.argtypes = [_Params] + [ctypes.c_void_p] * 13 + [
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.rl_admm_rescue.restype = ctypes.c_int
     Pt = cuda_build.ptr
     err = lib.rl_admm_rescue(
         p, Pt(P), Pt(Kinv), Pt(A), Pt(nvecs), Pt(vecs), Pt(c_inv),
         ctypes.c_void_p(None if kpad is None else kpad.data_ptr()), Pt(x),
-        Pt(z), Pt(y), Pt(stats), Pt(flags), Pt(ws), P.shape[0],
-        cuda_build.stream_ptr())
+        Pt(z), Pt(y), Pt(stats), Pt(flags), Pt(ws),
+        int(layout == "resident"), P.shape[0], cuda_build.stream_ptr())
     cuda_build.check(err)
+
+
+def pick_layout(n: int, m: int, layout) -> Layout:
+    """The layout of a launch: the plan's (``layout=None``), or the one
+    forced; forcing "resident" where it does not fit raises."""
+    plan = choose_layout(n, m)
+    if layout is None or layout == plan.name:
+        return plan
+    if layout == "resident":
+        raise ValueError(f"the resident layout does not fit n={n}, m={m}")
+    return _stream_layout(n, m)
+
+
+def ctas_per_sm_on_card(n: int, m: int, layout: Layout) -> int:
+    """CTAs per SM of B1's main kernel in ``layout`` by the card's own
+    occupancy calculator (shared memory, registers, threads)."""
+    lib = cuda_build.library()
+    lib.rl_admm_ctas_per_sm.argtypes = [ctypes.c_int] * 4
+    lib.rl_admm_ctas_per_sm.restype = ctypes.c_int
+    return lib.rl_admm_ctas_per_sm(n, m, layout.nnz_cap,
+                                   int(layout.name == "resident"))
+
+
+def smem_bytes_on_card(n: int, m: int, layout: Layout) -> int:
+    """The main launch's dynamic shared memory as the kernel source counts
+    it (to hold :func:`smem_plan` against)."""
+    lib = cuda_build.library()
+    lib.rl_admm_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.rl_admm_smem_bytes.restype = ctypes.c_longlong
+    return lib.rl_admm_smem_bytes(n, m, layout.nnz_cap,
+                                  int(layout.name == "resident"), 1)
 
 
 def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
@@ -295,13 +424,18 @@ def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
                  max_iter: int, check_every: int, refine_steps: int,
                  rescue_max_iter: int = 0, rescue_rho_scale: float = 5.0,
                  rescue_trigger: float = 7.5e-3, rescue_exit: float = 1e-3,
-                 ns_tol: float = 1e-3, ns_max_iters: int = 40
-                 ) -> Tuple[torch.Tensor, ...]:
+                 ns_tol: float = 1e-3, ns_max_iters: int = 40,
+                 layout=None) -> Tuple[torch.Tensor, ...]:
     """ADMM loop for a batch of scaled QPs: P, Kinv (B, n, n), A (B, m, n),
     q, D, x0 (B, n), l, u, rho, E, z0, y0 (B, m), c (B,).
 
     Returns (x, y, pri, dua, iters, solved, rescued). CPU tensors run the
-    plain version; CUDA float32 contiguous tensors launch the kernel."""
+    plain version; CUDA float32 contiguous tensors launch the kernel, in
+    the plan's layout (``layout=None``) or the one forced (``"resident"``,
+    ``"stream"``: for checks only)."""
+    if layout not in (None,) + LAYOUTS:
+        raise ValueError(f"layout must be None, 'resident' or 'stream', got "
+                         f"{layout!r}")
     kw = dict(sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
               max_iter=max_iter, check_every=check_every,
               refine_steps=refine_steps, rescue_max_iter=rescue_max_iter,
@@ -320,28 +454,31 @@ def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
             (E, "E", (Bsz, m)), (c, "c", (Bsz,)), (x0, "x0", (Bsz, n)),
             (z0, "z0", (Bsz, m)), (y0, "y0", (Bsz, m))):
         cuda_build.expect(t, name, shape)
-    p = params(n, m, **kw)
+    plan = pick_layout(n, m, layout)
+    p = params(n, m, nnz_cap=plan.nnz_cap, **kw)
     nvecs, vecs, c_inv = pack_vectors(q, l, u, rho, D, E, c)
     x = torch.empty_like(x0)
     z = torch.empty_like(z0)
     y = torch.empty_like(y0)
     stats = torch.empty((Bsz, 2), dtype=torch.float32, device=P.device)
-    flags = torch.empty((Bsz, 3), dtype=torch.int32, device=P.device)
+    flags = torch.empty((Bsz, 4), dtype=torch.int32, device=P.device)
     ws = torch.empty((Bsz if rescue_max_iter > 0 else 0, 4, n, n),
                      dtype=torch.float32, device=P.device)
     lib = cuda_build.library()
-    lib.rl_admm.argtypes = [_Params] + [ctypes.c_void_p] * 14 + [
-        ctypes.c_int, ctypes.c_void_p]
+    lib.rl_admm.argtypes = [_Params] + [ctypes.c_void_p] * 15 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.rl_admm.restype = ctypes.c_int
     Pt = cuda_build.ptr
     err = lib.rl_admm(p, Pt(P), Pt(Kinv), Pt(A), Pt(nvecs), Pt(vecs),
                       Pt(c_inv), Pt(x0), Pt(z0), Pt(y0), Pt(x), Pt(z), Pt(y),
-                      Pt(stats), Pt(flags),
-                      Bsz, cuda_build.stream_ptr())
+                      Pt(stats), Pt(flags), Pt(streamed.tensor(P.device)),
+                      int(plan.name == "resident"), Bsz,
+                      cuda_build.stream_ptr())
     launches.n += 1
+    layout_launches[plan.name].n += 1
     cuda_build.check(err)
     if rescue_max_iter > 0:
         launch_rescue(p, P, Kinv, A, nvecs, vecs, c_inv, None, x, z, y,
-                      stats, flags, ws)
+                      stats, flags, ws, plan.name)
     return (x, y, stats[:, 0], stats[:, 1], flags[:, 0], flags[:, 1] != 0,
             flags[:, 2] != 0)

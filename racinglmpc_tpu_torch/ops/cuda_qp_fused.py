@@ -30,7 +30,11 @@ The CUDA version (``csrc/cuda_qp_fused.cu``) runs one CTA of 512 threads
 per scenario (each scenario exits its own Newton-Schulz loop and its own
 ADMM loop) with K, X, Y and R in a per-scenario global workspace
 (4 n^2 floats, allocated here), then B1's rescue launch
-(``cuda_qp.launch_rescue``) for the lanes that need it.
+(``cuda_qp.launch_rescue``) for the lanes that need it. Its ADMM phase
+runs on B1's core in the layout ``cuda_qp.choose_layout`` picks (resident:
+A and P compressed into shared memory, the refreshed inverse copied into
+the Kinv slot, over which the GEMM tiles lie until then); scenarios it
+streams are counted in :data:`streamed`.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from racinglmpc_tpu_torch.ops import cuda_build, cuda_qp
 from racinglmpc_tpu_torch.utils.batched import lane_where as _w
 
 launches = cuda_build.LaunchCounter("fused_admm")
+streamed = cuda_build.ScenarioCounter("fused_admm_streamed")
 
 
 class FusedResult(NamedTuple):
@@ -172,7 +177,8 @@ def admm_iterate_fused(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0, z0,
             (y0, "y0", (Bsz, m))):
         cuda_build.expect(t, name, shape)
     cuda_build.expect(warm_ok, "warm_ok", (Bsz,), dtype=torch.bool)
-    p = cuda_qp.params(n, m, **kw)
+    plan = cuda_qp.choose_layout(n, m)
+    p = cuda_qp.params(n, m, nnz_cap=plan.nnz_cap, **kw)
     nvecs, vecs, c_inv = cuda_qp.pack_vectors(q, l, u, rho, D, E, c)
     dev = P.device
     warm_i = warm_ok.to(torch.int32)
@@ -180,27 +186,28 @@ def admm_iterate_fused(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0, z0,
     z = torch.empty_like(z0)
     y = torch.empty_like(y0)
     stats = torch.empty((Bsz, 2), dtype=torch.float32, device=dev)
-    flags = torch.empty((Bsz, 3), dtype=torch.int32, device=dev)
+    flags = torch.empty((Bsz, 4), dtype=torch.int32, device=dev)
     kinv = torch.empty((Bsz, n, n), dtype=torch.float32, device=dev)
     ns_resid = torch.empty((Bsz,), dtype=torch.float32, device=dev)
     kpad = torch.empty((Bsz,), dtype=torch.float32, device=dev)
     ns_info = torch.empty((Bsz, 2), dtype=torch.int32, device=dev)
     ws = torch.empty((Bsz, 4, n, n), dtype=torch.float32, device=dev)
     lib = cuda_build.library()
-    lib.rl_admm_fused.argtypes = [cuda_qp._Params] + [ctypes.c_void_p] * 20 \
-        + [ctypes.c_int, ctypes.c_void_p]
+    lib.rl_admm_fused.argtypes = [cuda_qp._Params] + [ctypes.c_void_p] * 21 \
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.rl_admm_fused.restype = ctypes.c_int
     Pt = cuda_build.ptr
     err = lib.rl_admm_fused(
         p, Pt(P), Pt(A), Pt(kinv0), Pt(warm_i), Pt(nvecs), Pt(vecs),
         Pt(c_inv), Pt(x0), Pt(z0), Pt(y0), Pt(x), Pt(z), Pt(y), Pt(stats),
         Pt(flags), Pt(kinv), Pt(ns_resid), Pt(kpad), Pt(ns_info), Pt(ws),
-        Bsz, cuda_build.stream_ptr())
+        Pt(streamed.tensor(dev)), int(plan.name == "resident"), Bsz,
+        cuda_build.stream_ptr())
     launches.n += 1
     cuda_build.check(err)
     if rescue_max_iter > 0:
         cuda_qp.launch_rescue(p, P, kinv, A, nvecs, vecs, c_inv, kpad, x, z,
-                              y, stats, flags, ws)
+                              y, stats, flags, ws, plan.name)
     return FusedResult(x, y, stats[:, 0], stats[:, 1], flags[:, 0],
                        flags[:, 1] != 0, kinv, ns_resid, flags[:, 2] != 0,
                        kpad, ns_info[:, 0] != 0, ns_info[:, 1])
