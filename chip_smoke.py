@@ -20,16 +20,21 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
 3. holds B1-B3 against their plain PyTorch versions on the card at the
    main path's shapes (the FTOCPs, lap store and plant states of the batch
    just driven): rollout |dx| < 1e-4, sys-ID |dA|,|dB|,|dC| < 1e-3 (also on
-   a ragged store with an empty lap); B1 in both of its layouts (resident:
-   Kinv and the compressed A and P in shared memory; stream: the matrices
-   read from global memory in every product): |dx| < 3e-2 after 16 fixed
-   iterations, >= 90% solved at tolerance, and a forced rho-escalation
+   a ragged store with a 4-row and an empty lap, on a store of tied
+   feature rows and on the store zero-padded to T = 1024), each bit-identical
+   over two calls, and B2's shared-memory plan against the kernel source's
+   count and the card's occupancy (one wave); B2 and B3 are timed by CUDA
+   events around 20 back-to-back launches, divided by 20, and every kernel's
+   device time comes from a short torch.profiler window; B1 in both of its
+   layouts (resident: Kinv and the compressed A and P in shared memory;
+   stream: the matrices read from global memory in every product):
+   |dx| < 3e-2 after 16 fixed iterations, >= 90% solved at tolerance, and
+   a forced rho-escalation
    rescue with the same rescued flags and iteration counts as the plain
    version on every lane; bit-identical results from two resident calls
    and from the two layouts; the shared-memory plan against the kernel
-   source's count; times each kernel (CUDA events, median of 20 launches
-   after warm-up; B1's layouts in turns: resident, stream, stream,
-   resident);
+   source's count; times B1 (CUDA events, median of 20 launches after
+   warm-up; its layouts in turns: resident, stream, stream, resident);
 4. runs the closed loop ``run_experiment(stages="pid,lti,ltv,lmpc",
    n_lmpc_laps=4, batch=4)`` and requires every lap finished, no NaN, a
    first->last lap improvement above 15% and no scenario streamed;
@@ -232,7 +237,7 @@ def fused_phase(torch, qp_mod, cuda_qp_fused, runs, trk, launches):
     """Phase 6: B4 against its plain version on the LTI stage's FTOCPs
     (warm cache, batch 64) and the LTV stage's (cold build, batch 256).
     Returns the kernel summary (times of the LTV set)."""
-    from racinglmpc_tpu_torch.runtime import stage_path
+    from racinglmpc_tpu_torch.runtime import kernel_bench, stage_path
 
     info, errs = {}, []
     for key, stage in (("config2_lti/fused", "lti"),
@@ -275,6 +280,9 @@ def fused_phase(torch, qp_mod, cuda_qp_fused, runs, trk, launches):
               rk < 50 * kw["ns_tol"], f"(max|I - K Kinv| {rk:.2e})")
         ms = time_ms(torch, lambda: cuda_qp_fused.admm_iterate_fused(
             *args, **kw))
+        dms = kernel_bench.device_ms(
+            lambda: cuda_qp_fused.admm_iterate_fused(*args, **kw),
+            ("admm_fused", "admm_rescue"))
         pms = time_ms(torch, lambda: cuda_qp_fused.admm_iterate_fused_plain(
             *args, **kw))
         # K = A'(rho A) + P + sigma I from A's nonzeros (2 nnz(row)^2 per
@@ -297,12 +305,14 @@ def fused_phase(torch, qp_mod, cuda_qp_fused, runs, trk, launches):
               f"iters mean kernel {float(k.iters.float().mean()):.2f} plain "
               f"{float(p.iters.float().mean()):.2f}, ns_resid max "
               f"{float(k.ns_resid.max()):.2e}")
-        info[stage] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+        info[stage] = dict(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
+                           bound_by=by)
     return dict(name="fused_admm", route="cuda",
                 source="racinglmpc_tpu_torch/csrc/cuda_qp_fused.cu",
                 replaces="racinglmpc_tpu/ops/pallas_qp.py:424",
                 launches=launches, max_abs_err=max(errs),
-                ms=info["ltv"]["ms"], plain_ms=info["ltv"]["plain_ms"],
+                ms=info["ltv"]["ms"], device_ms=info["ltv"]["device_ms"],
+                plain_ms=info["ltv"]["plain_ms"],
                 bound_ms=info["ltv"]["bound_ms"],
                 bound_by=info["ltv"]["bound_by"], library_ms=None)
 
@@ -336,7 +346,7 @@ def main() -> int:
                                           cuda_rollout, cuda_sysid)
     from racinglmpc_tpu_torch.ops import qp as qp_mod
     from racinglmpc_tpu_torch.runtime import experiment as exp
-    from racinglmpc_tpu_torch.runtime import main_path
+    from racinglmpc_tpu_torch.runtime import kernel_bench, main_path
     from racinglmpc_tpu_torch.utils.config import (LMPCConfig, SimConfig,
                                                    SolverConfig)
 
@@ -418,14 +428,20 @@ def main() -> int:
     # ---- phase 3: B1-B3 against their plain versions ----------------------
     # B3: plant rollout on the batch's current states and inputs
     u = state.u_old.contiguous()
-    ox, oxg = cuda_rollout.plant_step_batch(plant.x, plant.x_glob, u, vp,
-                                            trk, cfg.sim, table=table)
+
+    def rollout():
+        return cuda_rollout.plant_step_batch(plant.x, plant.x_glob, u, vp,
+                                             trk, cfg.sim, table=table)
+
+    ox, oxg = rollout()
     px, pxg = cuda_rollout.plant_step_batch_plain(plant.x, plant.x_glob, u,
                                                   vp, trk, cfg.sim)
     err = max(float((ox - px).abs().max()), float((oxg - pxg).abs().max()))
     check("rollout_vs_plain", err < 1e-4, f"(max |dx| {err:.2e})")
-    ms = time_ms(torch, lambda: cuda_rollout.plant_step_batch(
-        plant.x, plant.x_glob, u, vp, trk, cfg.sim, table=table))
+    check("rollout_same_bits_twice",
+          all(bool(torch.equal(a, b)) for a, b in zip((ox, oxg), rollout())))
+    ms = kernel_bench.event_ms(rollout)
+    dms = kernel_bench.device_ms(rollout, kernel_bench.KERNELS["rollout"])
     pms = time_ms(torch, lambda: cuda_rollout.plant_step_batch_plain(
         plant.x, plant.x_glob, u, vp, trk, cfg.sim))
     bms, by = bound_ms(nbytes(plant.x, plant.x_glob, u, ox, oxg),
@@ -434,45 +450,78 @@ def main() -> int:
         name="rollout", route="cuda",
         source="racinglmpc_tpu_torch/csrc/cuda_rollout.cu",
         replaces="racinglmpc_tpu/ops/pallas_rollout.py:66",
-        launches=launches["rollout"], max_abs_err=err, ms=ms, plain_ms=pms,
-        bound_ms=bms, bound_by=by, library_ms=None))
+        launches=launches["rollout"], max_abs_err=err, ms=ms, device_ms=dms,
+        plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None))
 
-    # B2: sys-ID at the horizon of the current state (full store), then a
-    # ragged store (one lap of 37 rows) with an empty lap
+    # B2: sys-ID at the horizon of the current state on the full store, a
+    # ragged store (a lap of 4 rows, one of 37, an empty one), a store
+    # whose rows come in pairs of equal features with different successors
+    # (ties decide the picks) and the store zero-padded to T = 1024
     N = cfg.lmpc.N
     x_lin = state.x_lin[:, :N].contiguous()
     u_lin = state.u_lin.contiguous()
     st = state.store
+    Kl, T = st.x.shape[1], st.x.shape[2]
     ragged_steps = st.steps.clone()
+    ragged_steps[:, 0] = 4
     ragged_steps[:, 1] = 37
     ragged_steps[:, 3] = sysid._EMPTY
     rx, ru = st.x.clone(), st.u.clone()
     rx[:, 3] = 0.0
     ru[:, 3] = 0.0
-    ragged = sysid.LapStore(rx, ru, ragged_steps)
-    errs = []
-    for store in (st, ragged):
-        k = cuda_sysid.local_linearization_horizon(
+    pair = torch.arange(T, device=dev) // 2
+    tx, tu = st.x.clone(), st.u[:, :, pair].contiguous()
+    tx[..., :3] = st.x[:, :, pair, :3]
+    pad = (0, 0, 0, max(T, 1024) - T)
+    stores = {"full": st, "ragged+empty": sysid.LapStore(rx, ru, ragged_steps),
+              "ties": sysid.LapStore(tx, tu, st.steps),
+              "T=1024": sysid.LapStore(
+                  torch.nn.functional.pad(st.x, pad).contiguous(),
+                  torch.nn.functional.pad(st.u, pad).contiguous(), st.steps)}
+
+    def sysid_k(store):
+        return cuda_sysid.local_linearization_horizon(
             store, trk, x_lin, u_lin, cfg.lmpc, cfg.sim.dt, table=table)
+
+    errs = {}
+    for name, store in stores.items():
+        k = sysid_k(store)
         p = cuda_sysid.local_linearization_horizon_plain(
             store, trk, x_lin, u_lin, cfg.lmpc, cfg.sim.dt)
-        errs.append(max(float((a - b).abs().max()) for a, b in zip(k, p)))
-    check("sysid_vs_plain", max(errs) < 1e-3,
-          f"(max |dA|,|dB|,|dC| full {errs[0]:.2e}, ragged+empty "
-          f"{errs[1]:.2e})")
-    ms = time_ms(torch, lambda: cuda_sysid.local_linearization_horizon(
-        st, trk, x_lin, u_lin, cfg.lmpc, cfg.sim.dt, table=table))
+        errs[name] = max(float((a - b).abs().max()) for a, b in zip(k, p))
+    check("sysid_vs_plain", max(errs.values()) < 1e-3,
+          "(max |dA|,|dB|,|dC| " + ", ".join(
+              f"{n} {e:.2e}" for n, e in errs.items()) + ")")
+    k = sysid_k(st)
+    check("sysid_same_bits_twice",
+          all(bool(torch.equal(a, b)) for a, b in zip(k, sysid_k(st))))
+    for rows in sorted({T, max(T, 1024)}):
+        pl = cuda_sysid.plan(Kl, rows, N, B)
+        card = (cuda_sysid.smem_bytes_on_card(rows, N, pl.nbuf),
+                cuda_sysid.ctas_per_sm_on_card(rows, N, pl.nbuf))
+        print(f"[chip_smoke] B2 plan at K={Kl}, T={rows}, N={N}: {pl}; "
+              f"kernel source {card[0]} B, CTAs per SM on the card {card[1]}")
+        check(f"sysid_plan_T{rows}_matches_kernel_source",
+              card == (pl.nbytes, pl.ctas_per_sm) and pl.waves == 1,
+              "(one wave of the batch)")
+    ms = kernel_bench.event_ms(lambda: sysid_k(st))
+    dms = kernel_bench.device_ms(lambda: sysid_k(st),
+                                 kernel_bench.KERNELS["sysid"])
     pms = time_ms(torch, lambda: cuda_sysid.local_linearization_horizon_plain(
         st, trk, x_lin, u_lin, cfg.lmpc, cfg.sim.dt))
-    Kl, T = st.x.shape[1], st.x.shape[2]
-    ops = B * N * Kl * T * (19.0 + 2.0 * cfg.lmpc.knn_max)
+    # operations these laps need: a scaled-L1 distance (16) per valid row
+    # and query, 3 per pick and normal-equation entry (45)
+    valid = ((torch.clamp(st.steps, max=T) - 1).clamp(min=0)
+             * (st.steps < sysid._EMPTY)).sum()
+    ops = N * (16.0 * float(valid) + B * Kl * cfg.lmpc.knn_max * 135.0)
     bms, by = bound_ms(nbytes(st.x, st.u, st.steps, x_lin, u_lin, *k), ops)
     kernels.append(dict(
         name="sysid", route="cuda",
         source="racinglmpc_tpu_torch/csrc/cuda_sysid.cu",
         replaces="racinglmpc_tpu/ops/pallas_sysid.py:68",
-        launches=launches["sysid"], max_abs_err=max(errs), ms=ms,
-        plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None))
+        launches=launches["sysid"], max_abs_err=max(errs.values()), ms=ms,
+        device_ms=dms, plain_ms=pms, bound_ms=bms, bound_by=by,
+        library_ms=None))
 
     # B1: the batch's own FTOCPs, prologue as in the solve
     qp, _, _, _ = ctrl.build_qp(state, plant.x)
@@ -553,6 +602,8 @@ def main() -> int:
             *args, **kw, layout=name)))
     ms = statistics.mean(times["resident"])
     stream_ms = statistics.mean(times["stream"])
+    dms = kernel_bench.device_ms(lambda: cuda_qp.admm_iterate(*args, **kw),
+                                 ("admm_main", "admm_rescue"))
     pms = time_ms(torch, lambda: cuda_qp.admm_iterate_plain(*args, **kw))
     ops = float(admm_ops(torch, args[0], args[2], n, m, k[4],
                          kw["refine_steps"], cfg.solver.check_every).sum())
@@ -567,11 +618,12 @@ def main() -> int:
         source="racinglmpc_tpu_torch/csrc/cuda_qp.cu",
         replaces="racinglmpc_tpu/ops/pallas_qp.py:391",
         launches=launches["admm"], max_abs_err=max(err_b1.values()), ms=ms,
-        plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None,
-        resident_ms=ms, stream_ms=stream_ms))
+        device_ms=dms, plain_ms=pms, bound_ms=bms, bound_by=by,
+        library_ms=None, resident_ms=ms, stream_ms=stream_ms))
     for kinfo in kernels:
         print(f"[chip_smoke] kernel {kinfo['name']}: {kinfo['ms']:.4f} ms "
-              f"(plain {kinfo['plain_ms']:.4f} ms, bound "
+              f"(device {kinfo['device_ms']}, plain "
+              f"{kinfo['plain_ms']:.4f} ms, bound "
               f"{kinfo['bound_ms']:.4f} ms by {kinfo['bound_by']}), "
               f"{kinfo['launches']} launches on the main path")
 

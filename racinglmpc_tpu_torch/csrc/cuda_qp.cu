@@ -93,7 +93,7 @@ admm_main_resident(const QPParams p, const float* P_, const float* Kinv_,
   PHASE(PH_PROLOGUE)
   Ctx c = carve(ctxp, n, m);
   load_state(p, c, b, nvecs, vecs, x0, z0, y0);
-  mbar_wait0(bar);
+  mbar_wait(bar, 0);
   PHASE(PH_WAIT)
   if (fits)
     admm_loop(p, c, b, SparseOps(s, K, n, m), cinv[b], false, xo, zo, yo,

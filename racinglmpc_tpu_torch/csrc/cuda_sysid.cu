@@ -11,173 +11,353 @@
 // diagonal pivots, and the analytic constant-curvature kinematic rows.
 //
 // Bound on this card: per scenario the lap store is K x T x 8 floats
-// (64 KB at K=4, T=512) and every query scans all of it: ~N x K x T x 16
-// flops plus knn x K rounds of a T-long arg-min, so ~1-2 MFLOP and a few
-// hundred KB of (L1/L2-resident) reads per scenario -- latency of the
-// dependent arg-min rounds, not bandwidth, sets the time. The design gives
-// each query its own warp (no block-wide synchronization), keeps one lap's
-// T distances per warp in shared memory, runs each arg-min round as a
-// 5-step shuffle reduction, and accumulates the normal equations in
-// registers; the store is read straight from global memory (coalesced
-// along T by the lanes).
+// (64 KB at K=4, T=512), read once, and every query takes a distance to
+// each valid row (~N x K x T x 16 flops): a few us of HBM traffic for the
+// batch. What
+// sets the time is the latency of the per-query work on the SM, so the
+// design cuts the dependent steps and fits the batch into one wave:
+// - one CTA per scenario, one warp per horizon query; at most 64
+//   registers a thread (the launch bound), so two CTAs of 14 warps share
+//   an SM and 256 scenarios run in one wave on 132 SMs;
+// - each stored lap (x and u, T x 8 floats) is staged once per CTA by
+//   bulk asynchronous copies on an mbarrier, into one of two buffers, so
+//   lap k+1 lands while lap k is searched; the 14 warps read the lap from
+//   shared memory;
+// - selection without rescans: each lane keeps the sorted top-knn of its
+//   T/32 candidates (distance, then index) in registers, and each of the
+//   knn rounds is two warp-wide min-reductions over the lanes' heads
+//   (distance, then index among equal distances); the winner's lane pops
+//   its head. Once no finite distance is left, a round takes row 0 at
+//   distance +inf, as the arg-min over all-infinite distances does
+//   (a NaN distance never wins);
+// - the normal equations are split over the lanes: lane i sums entries i
+//   and i + 32 of the 45 (two 5x5 upper triangles and three right-hand
+//   sides) over the picks in the same order (lap 0 round 0 ... lap K-1
+//   round knn-1) with the same unfused multiplies and adds, reading a
+//   per-warp record of the picks (lane r gathers round r's row and its
+//   successor from the staged lap);
+// - Gauss-Jordan runs on the 65 entries of the two augmented systems in
+//   shared memory, an entry (or three) per lane, each with the one-thread
+//   elimination's operations; lane 0 then writes the kinematic rows.
+// So every output has the bits of the one-warp-per-query kernel before
+// it (the output checksums of runtime/kernel_bench.py --load).
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "bulk_copy.cuh"
+#include "rl_phases.cuh"
 
 #define RL_MAX_SEG 16
+#define RL_MAX_KNN 7                      // the picks a lane's list holds
+#define RL_WARP_FLOATS (RL_MAX_KNN * 10)  // a warp's scratch (>= 65)
+#define FULL 0xffffffffu
+
+// phases of warp 0 of scenario 0 (-DRL_PHASES)
+enum { SP_STAGE, SP_DIST, SP_SELECT, SP_ACCUM, SP_GJ, SP_KIN, SP_N };
+RL_PHASE_DECL(rl_sysid_phase, SP_N)
 
 struct SysidParams {
-  int K, T, N, knn, empty, nseg;
+  int K, T, N, knn, empty, nseg, nbuf;
   float h, reg, dt, L;
   float scal[5];
   float s0[RL_MAX_SEG];
   float curv[RL_MAX_SEG];
 };
 
-__device__ __forceinline__ int tri(int a, int b) {  // a <= b, 5x5 upper
-  return a * 5 - a * (a - 1) / 2 + (b - a);
+// ---------------------------------------------------------------------------
+// dynamic shared memory, in bytes (ops/cuda_sysid.py:plan mirrors it):
+//   [2 mbarriers (16) | segment table s0, curv (128) | 16 spare]
+//   [nbuf lap buffers of T x 8 floats: x (T x 6) then u (T x 2)]
+//   [N x RL_WARP_FLOATS: each warp's picks of a lap (weight and the nine
+//    features of each), then its two augmented systems, Mv (5x6) and
+//    Ml (5x7)]
+// ---------------------------------------------------------------------------
+struct SysidSmem {
+  size_t lap, gj, total;
+};
+
+static __host__ __device__ inline SysidSmem sysid_smem(int T, int N,
+                                                        int nbuf) {
+  SysidSmem s;
+  s.lap = 160;
+  s.gj = s.lap + (size_t)nbuf * T * 8 * sizeof(float);
+  s.total = s.gj + (size_t)N * RL_WARP_FLOATS * sizeof(float);
+  return s;
 }
 
-// Gauss-Jordan, diagonal pivots, the reference's elimination order.
-template <int NY>
-__device__ void gj_solve(float (&M)[5][5 + NY]) {
-  for (int k = 0; k < 5; ++k) {
-    const float piv = M[k][k];
-    float row[5 + NY];
+// one thread: lap k of scenario b (x: T x 6, u: T x 2 floats; 16-byte
+// aligned because T is even and the store is) into buf, completing on bar
+static __device__ void lap_copy(float* buf, const float* sx, const float* su,
+                                int b, int k, int K, int T, uint64_t* bar) {
+  const uint32_t xb = (uint32_t)T * 24u, ub = (uint32_t)T * 8u;
+  // the buffer's last reads (generic proxy) come before the copy's writes
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  mbar_arrive(bar, xb + ub);
+  const size_t lap = (size_t)b * K + k;
+  bulk_load(buf, sx + lap * T * 6, xb, bar);
+  bulk_load(buf + (size_t)T * 6, su + lap * T * 2, ub, bar);
+}
+
+// ---- selection ------------------------------------------------------------
+// insert (d, t) into the ascending list (ld, lt), dropping its last entry;
+// t exceeds every index already listed, so d goes after equal distances.
+// +inf and NaN never enter.
+template <int L>
+static __device__ __forceinline__ void insert(float (&ld)[L], int (&lt)[L],
+                                              float d, int t) {
 #pragma unroll
-    for (int j = 0; j < 5 + NY; ++j) row[j] = M[k][j] / piv;
-#pragma unroll
-    for (int i = 0; i < 5; ++i) {
-      if (i == k) continue;
-      const float f = M[i][k];
-#pragma unroll
-      for (int j = 0; j < 5 + NY; ++j)
-        M[i][j] = __fsub_rn(M[i][j], __fmul_rn(f, row[j]));
-    }
-#pragma unroll
-    for (int j = 0; j < 5 + NY; ++j) M[k][j] = row[j];
+  for (int i = L - 1; i > 0; --i) {
+    const bool below = d < ld[i - 1], here = d < ld[i];
+    ld[i] = below ? ld[i - 1] : (here ? d : ld[i]);
+    lt[i] = below ? lt[i - 1] : (here ? t : lt[i]);
   }
+  const bool here = d < ld[0];
+  ld[0] = here ? d : ld[0];
+  lt[0] = here ? t : lt[0];
 }
 
-__global__ void sysid_kernel(const SysidParams p,
-                             const float* __restrict__ sx,
-                             const float* __restrict__ su,
-                             const int* __restrict__ steps,
-                             const float* __restrict__ xq,
-                             const float* __restrict__ uq,
-                             float* __restrict__ outA,
-                             float* __restrict__ outB,
-                             float* __restrict__ outC) {
-  extern __shared__ float dsh[];
+template <int L>
+static __device__ __forceinline__ void pop(float (&ld)[L], int (&lt)[L]) {
+#pragma unroll
+  for (int i = 0; i + 1 < L; ++i) {
+    ld[i] = ld[i + 1];
+    lt[i] = lt[i + 1];
+  }
+  ld[L - 1] = INFINITY;
+}
+
+// ---- normal equations -----------------------------------------------------
+// Entry e of the 45: Qv (e < 15) and Ql (e < 30), the upper triangles
+// (a <= c) of the vx and lateral normal matrices; bv (e < 35) and bl (the
+// two lateral right-hand sides, interleaved). Its term per pick is
+// (w * feature f1) * feature f2, and it lands at m1 (and its mirror m2) of
+// the warp's Mv (5x6) / Ml (5x7, from float 30). Features of a pick (row
+// t, successor sc), at 1 + f of its record (the weight at 0): 0-2 vx, vy,
+// wz of t; 3-4 delta, a of t; 5 the constant 1; 6-8 vx, vy, wz of sc.
+// mv = [vx, vy, wz, a, 1], ml = [vx, vy, wz, delta, 1].
+struct Entry {
+  int f1, f2, m1, m2;
+  bool mat, diag;   // a normal-matrix entry; on its diagonal
+};
+
+static __device__ __forceinline__ int tri0(int a) {  // tri(a, a)
+  return a * 5 - a * (a - 1) / 2;
+}
+
+static __device__ Entry entry_of(int e) {
+  Entry n;
+  n.mat = e < 30;
+  n.diag = false;
+  if (n.mat) {
+    const bool v = e < 15;
+    const int i = v ? e : e - 15;
+    int a = 0;
+    while (i >= tri0(a + 1)) ++a;
+    const int c = a + i - tri0(a);
+    n.f1 = v ? (a < 3 ? a : a + 1) : (a < 4 ? a : 5);
+    n.f2 = v ? (c < 3 ? c : c + 1) : (c < 4 ? c : 5);
+    const int W = v ? 6 : 7, base = v ? 0 : 30;
+    n.m1 = base + a * W + c;
+    n.m2 = base + c * W + a;
+    n.diag = a == c;
+  } else if (e < 35) {
+    const int a = e - 30;
+    n.f1 = a < 3 ? a : a + 1;
+    n.f2 = 6;
+    n.m1 = n.m2 = a * 6 + 5;
+  } else {
+    const int a = (e - 35) / 2, y = (e - 35) % 2;
+    n.f1 = a < 4 ? a : 5;
+    n.f2 = 7 + y;
+    n.m1 = n.m2 = 30 + a * 7 + 5 + y;
+  }
+  return n;
+}
+
+__global__ void __launch_bounds__(1024, 1)
+sysid_kernel(const SysidParams p, const float* __restrict__ sx,
+             const float* __restrict__ su, const int* __restrict__ steps,
+             const float* __restrict__ xq, const float* __restrict__ uq,
+             float* __restrict__ outA, float* __restrict__ outB,
+             float* __restrict__ outC) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const int T = p.T, K = p.K, nbuf = p.nbuf;
+  const SysidSmem lay = sysid_smem(T, p.N, nbuf);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm);
+  float* ts0 = reinterpret_cast<float*>(sm + 16);
+  float* tcv = ts0 + RL_MAX_SEG;
+  float* laps = reinterpret_cast<float*>(sm + lay.lap);
   const int b = blockIdx.x;
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  if (w >= p.N) return;
-  const int T = p.T, K = p.K;
-  float* d = dsh + w * T;
+  float* gw = reinterpret_cast<float*>(sm + lay.gj) + w * RL_WARP_FLOATS;
+  RL_PHASE_START(b == 0 && threadIdx.x == 0)
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar[0]);
+    mbar_init(&bar[1]);
+  }
+  if (threadIdx.x < RL_MAX_SEG) {
+    ts0[threadIdx.x] = p.s0[threadIdx.x];
+    tcv[threadIdx.x] = p.curv[threadIdx.x];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int k = 0; k < nbuf && k < K; ++k)
+      lap_copy(laps + (size_t)k * T * 8, sx, su, b, k, K, T, &bar[k]);
 
   const float* xqq = xq + ((size_t)b * p.N + w) * 6;
   const float* uqq = uq + ((size_t)b * p.N + w) * 2;
+  const float z[5] = {xqq[0], xqq[1], xqq[2], uqq[0], uqq[1]};
+  float scal[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) scal[j] = p.scal[j];
+  const Entry e0 = entry_of(lane);
+  const bool two = lane + 32 < 45;
+  const Entry e1 = entry_of(two ? lane + 32 : lane);
+  float acc0 = 0.f, acc1 = 0.f;
+
+  for (int k = 0; k < K; ++k) {
+    const float* lx = laps + (size_t)(k % nbuf) * T * 8;
+    const float* lu = lx + (size_t)T * 6;
+    mbar_wait(&bar[k % nbuf], (uint32_t)(k / nbuf) & 1u);
+    RL_PHASE(rl_sysid_phase, SP_STAGE, lx[lane])
+
+    // distances of this lane's candidates t = lane, lane + 32, ... into
+    // its sorted list; the invalid ones (rows steps-1 on, empty laps)
+    // would enter at +inf, which never enters
+    const int st = steps[b * K + k];
+    const int nvalid = st < p.empty ? (st < T ? st : T) - 1 : 0;
+    float ld[RL_MAX_KNN];
+    int lt[RL_MAX_KNN];
+#pragma unroll
+    for (int i = 0; i < RL_MAX_KNN; ++i) {
+      ld[i] = INFINITY;
+      lt[i] = 0;
+    }
+    for (int t = lane; t < nvalid; t += 32) {
+      const float2 xy = *reinterpret_cast<const float2*>(lx + t * 6);
+      const float2 du = *reinterpret_cast<const float2*>(lu + t * 2);
+      const float f[5] = {xy.x, xy.y, lx[t * 6 + 2], du.x, du.y};
+      float dist = 0.f;
+#pragma unroll
+      for (int j = 0; j < 5; ++j)
+        dist = __fadd_rn(dist, fabsf(__fmul_rn(f[j] - z[j], scal[j])));
+      insert(ld, lt, dist, t);
+    }
+    RL_PHASE(rl_sysid_phase, SP_DIST, ld[0])
+
+    // knn rounds: the smallest head (distance bits, non-negative floats
+    // order as unsigned), then the smallest index among equal heads; lane
+    // r keeps round r's pick
+    int sel_t = 0;
+    float sel_d = INFINITY;
+    for (int r = 0; r < p.knn; ++r) {
+      const unsigned hd = __float_as_uint(ld[0]);
+      const unsigned md = __reduce_min_sync(FULL, hd);
+      int pick = 0;
+      if (md < 0x7f800000u) {
+        pick = (int)__reduce_min_sync(FULL, hd == md ? (unsigned)lt[0]
+                                                     : 0xffffffffu);
+        if (lane == (pick & 31)) pop(ld, lt);
+      }
+      if (lane == r) {
+        sel_t = pick;
+        sel_d = __uint_as_float(md);
+      }
+    }
+    RL_PHASE(rl_sysid_phase, SP_SELECT, sel_d)
+
+    // lane r < knn gathers round r's record: the weight and the pick's
+    // nine features (row, successor) from the staged lap
+    if (lane < p.knn) {
+      const float q = sel_d / p.h;
+      const float wgt = sel_d < p.h
+          ? __fmul_rn(0.75f, __fsub_rn(1.0f, __fmul_rn(q, q))) : 0.0f;
+      const int sc = sel_t + 1 < T ? sel_t + 1 : T - 1;
+      float* rec = gw + lane * 10;
+      rec[0] = wgt;
+      rec[1] = lx[sel_t * 6 + 0];
+      rec[2] = lx[sel_t * 6 + 1];
+      rec[3] = lx[sel_t * 6 + 2];
+      rec[4] = lu[sel_t * 2 + 0];
+      rec[5] = lu[sel_t * 2 + 1];
+      rec[6] = 1.0f;
+      rec[7] = lx[sc * 6 + 0];
+      rec[8] = lx[sc * 6 + 1];
+      rec[9] = lx[sc * 6 + 2];
+    }
+    __syncwarp();
+    // this lane's entries summed over the picks in round order, with
+    // unfused multiplies and adds: the plain version's rounding, operation
+    // for operation (these 5x5 systems are near singular when stored laps
+    // repeat, so contraction differences would be amplified)
+    for (int r = 0; r < p.knn; ++r) {
+      const float* rec = gw + r * 10;
+      acc0 = __fadd_rn(acc0, __fmul_rn(__fmul_rn(rec[0], rec[1 + e0.f1]),
+                                       rec[1 + e0.f2]));
+      if (two)
+        acc1 = __fadd_rn(acc1, __fmul_rn(__fmul_rn(rec[0], rec[1 + e1.f1]),
+                                         rec[1 + e1.f2]));
+    }
+    RL_PHASE(rl_sysid_phase, SP_ACCUM, acc0 + acc1)
+    __syncthreads();   // every warp is done with this buffer
+    if (threadIdx.x == 0 && k + nbuf < K)
+      lap_copy(laps + (size_t)(k % nbuf) * T * 8, sx, su, b, k + nbuf, K, T,
+               &bar[k % nbuf]);
+  }
+
+  // the two augmented systems: normal matrix + ridge on the diagonal,
+  // right-hand sides in the last columns
+  const float v0 = e0.mat ? acc0 + (e0.diag ? p.reg : 0.f) : acc0;
+  gw[e0.m1] = v0;
+  gw[e0.m2] = v0;
+  if (two) {
+    const float v1 = e1.mat ? acc1 + (e1.diag ? p.reg : 0.f) : acc1;
+    gw[e1.m1] = v1;
+    gw[e1.m2] = v1;
+  }
+  __syncwarp();
+
+  // Gauss-Jordan, diagonal pivots, the reference's elimination order:
+  // lane i updates entries i, i + 32, i + 64 of [Mv | Ml]
+  for (int k = 0; k < 5; ++k) {
+    float nv[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int e = lane + 32 * i;
+      if (e >= 65) continue;
+      const int base = e < 30 ? 0 : 30, W = e < 30 ? 6 : 7;
+      const int r = (e - base) / W, c = (e - base) % W;
+      const float* M = gw + base;
+      const float row = M[k * W + c] / M[k * W + k];
+      nv[i] = r == k ? row
+                     : __fsub_rn(M[r * W + c], __fmul_rn(M[r * W + k], row));
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int e = lane + 32 * i;
+      if (e < 65) gw[e] = nv[i];
+    }
+    __syncwarp();
+  }
+  RL_PHASE(rl_sysid_phase, SP_GJ, gw[lane])
+
+  if (lane != 0) return;
+  const float(*Mv)[6] = reinterpret_cast<const float(*)[6]>(gw);
+  const float(*Ml)[7] = reinterpret_cast<const float(*)[7]>(gw + 30);
   float xv[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i) xv[i] = xqq[i];
-  const float z[5] = {xv[0], xv[1], xv[2], uqq[0], uqq[1]};
-
-  float Qv[15], Ql[15], bv[5], bl[10];
-#pragma unroll
-  for (int i = 0; i < 15; ++i) { Qv[i] = 0.f; Ql[i] = 0.f; }
-#pragma unroll
-  for (int i = 0; i < 5; ++i) { bv[i] = 0.f; bl[2 * i] = 0.f; bl[2 * i + 1] = 0.f; }
-
-  for (int k = 0; k < K; ++k) {
-    const int st = steps[b * K + k];
-    const int nvalid = (st < T ? st : T) - 1;
-    const bool nonempty = st < p.empty;
-    const float* lx = sx + ((size_t)b * K + k) * T * 6;
-    const float* lu = su + ((size_t)b * K + k) * T * 2;
-    for (int t = lane; t < T; t += 32) {
-      float dist = INFINITY;
-      if (nonempty && t < nvalid) {
-        const float f[5] = {lx[t * 6 + 0], lx[t * 6 + 1], lx[t * 6 + 2],
-                            lu[t * 2 + 0], lu[t * 2 + 1]};
-        dist = 0.f;
-#pragma unroll
-        for (int j = 0; j < 5; ++j)
-          dist = __fadd_rn(dist, fabsf(__fmul_rn(f[j] - z[j], p.scal[j])));
-      }
-      d[t] = dist;
-    }
-    __syncwarp();
-    for (int r = 0; r < p.knn; ++r) {
-      float best = INFINITY;
-      int bi = T;
-      for (int t = lane; t < T; t += 32) {
-        const float v = d[t];
-        if (v < best || (v == best && t < bi)) { best = v; bi = t; }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, best, off);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        if (ov < best || (ov == best && oi < bi)) { best = ov; bi = oi; }
-      }
-      best = __shfl_sync(0xffffffffu, best, 0);
-      bi = __shfl_sync(0xffffffffu, bi, 0);
-      __syncwarp();
-      if (lane == 0) d[bi] = INFINITY;   // exclude from the next rounds
-      __syncwarp();
-
-      const float q = best / p.h;
-      const float wgt =
-          best < p.h ? __fmul_rn(0.75f, __fsub_rn(1.0f, __fmul_rn(q, q))) : 0.0f;
-      const int sc = bi + 1 < T ? bi + 1 : T - 1;
-      const float vx = lx[bi * 6 + 0], vy = lx[bi * 6 + 1], wz = lx[bi * 6 + 2];
-      const float de = lu[bi * 2 + 0], ac = lu[bi * 2 + 1];
-      const float y0 = lx[sc * 6 + 0], y1 = lx[sc * 6 + 1], y2 = lx[sc * 6 + 2];
-      const float mv[5] = {vx, vy, wz, ac, 1.0f};
-      const float ml[5] = {vx, vy, wz, de, 1.0f};
-#pragma unroll
-      for (int a = 0; a < 5; ++a) {
-        // unfused multiply / add: the plain version's rounding, operation
-        // for operation (these 5x5 systems are near singular when stored
-        // laps repeat, so contraction differences would be amplified)
-        const float wv = __fmul_rn(wgt, mv[a]), wl = __fmul_rn(wgt, ml[a]);
-#pragma unroll
-        for (int c = a; c < 5; ++c) {
-          Qv[tri(a, c)] = __fadd_rn(Qv[tri(a, c)], __fmul_rn(wv, mv[c]));
-          Ql[tri(a, c)] = __fadd_rn(Ql[tri(a, c)], __fmul_rn(wl, ml[c]));
-        }
-        bv[a] = __fadd_rn(bv[a], __fmul_rn(wv, y0));
-        bl[2 * a] = __fadd_rn(bl[2 * a], __fmul_rn(wl, y1));
-        bl[2 * a + 1] = __fadd_rn(bl[2 * a + 1], __fmul_rn(wl, y2));
-      }
-    }
-    __syncwarp();
-  }
-
-  float Mv[5][6], Ml[5][7];
-#pragma unroll
-  for (int a = 0; a < 5; ++a) {
-#pragma unroll
-    for (int c = 0; c < 5; ++c) {
-      const int i = a <= c ? tri(a, c) : tri(c, a);
-      Mv[a][c] = Qv[i] + (a == c ? p.reg : 0.f);
-      Ml[a][c] = Ql[i] + (a == c ? p.reg : 0.f);
-    }
-    Mv[a][5] = bv[a];
-    Ml[a][5] = bl[2 * a];
-    Ml[a][6] = bl[2 * a + 1];
-  }
-  gj_solve<1>(Mv);
-  gj_solve<2>(Ml);
-
-  if (lane != 0) return;
   // kinematic rows (constant-curvature Jacobian at the query)
   const float vx = xv[0], vy = xv[1], wz = xv[2], epsi = xv[3], s = xv[4], ey = xv[5];
   const float sw = s > p.L ? s - p.L * floorf(s / p.L) : s;
   int idx = -1;
-  for (int i = 0; i < p.nseg; ++i) idx += (p.s0[i] <= sw) ? 1 : 0;
+  for (int i = 0; i < p.nseg; ++i) idx += (ts0[i] <= sw) ? 1 : 0;
   idx = idx < 0 ? 0 : (idx > p.nseg - 1 ? p.nseg - 1 : idx);
-  const float cur = p.curv[idx];
+  const float cur = tcv[idx];
   float den = 1.0f - cur * ey;
   den = den >= 0.0f ? fmaxf(den, 0.05f) : fminf(den, -0.05f);
   const float ce = cosf(epsi), se = sinf(epsi), h = p.dt;
@@ -226,17 +406,53 @@ __global__ void sysid_kernel(const SysidParams p,
   C[3] = f3 - d3;
   C[4] = f4 - d4;
   C[5] = f5 - d5;
+  RL_PHASE(rl_sysid_phase, SP_KIN, C[5])
+}
+
+// raises the kernel's dynamic shared-memory limit to smem, once per size
+// and device (each setting is a round trip to the CUDA runtime)
+static cudaError_t allow(size_t smem) {
+  static size_t allowed[16] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  size_t& ok = allowed[dev & 15];
+  if (smem <= ok) return cudaSuccess;
+  e = cudaFuncSetAttribute(sysid_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e == cudaSuccess) ok = smem;
+  return e;
+}
+
+// the dynamic shared memory of a launch, as the kernel counts it
+extern "C" long long rl_sysid_smem_bytes(int T, int N, int nbuf) {
+  return (long long)sysid_smem(T, N, nbuf).total;
+}
+
+// CTAs per SM by the card's occupancy calculator (shared memory,
+// registers, threads)
+extern "C" int rl_sysid_ctas_per_sm(int T, int N, int nbuf) {
+  const size_t smem = sysid_smem(T, N, nbuf).total;
+  int ctas = 0;
+  if (allow(smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, sysid_kernel,
+                                                    N * 32, smem) !=
+          cudaSuccess)
+    return -1;
+  return ctas;
 }
 
 extern "C" int rl_sysid(SysidParams p, const float* sx, const float* su,
                         const int* steps, const float* xq, const float* uq,
                         float* A, float* Bm, float* C, int B, void* stream) {
   if (B <= 0) return 0;
-  const size_t smem = (size_t)p.N * p.T * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      sysid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = sysid_smem(p.T, p.N, p.nbuf).total;
+  const cudaError_t e = allow(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   sysid_kernel<<<B, p.N * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       p, sx, su, steps, xq, uq, A, Bm, C);
   return static_cast<int>(cudaGetLastError());
 }
+
+RL_PHASE_EXPORT(rl_sysid_phases, rl_sysid_phase, SP_N)

@@ -12,6 +12,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 struct QPParams {
   int n, m, max_iter, check_every, refine_steps, rescue_max_iter,
       ns_max_iters, n_pad, nnz_cap;
@@ -164,40 +166,13 @@ static __device__ Sparse carve_sparse(unsigned char* smb, const Resident& L) {
 }
 
 // ---------------------------------------------------------------------------
-// the Kinv copy: 1-D bulk copies (cp.async.bulk) completing on an mbarrier
+// the Kinv copy: 1-D bulk copies (bulk_copy.cuh) completing on an mbarrier
 // ---------------------------------------------------------------------------
-static __device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-static __device__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// waits for phase 0 of bar; a copy that never lands traps (a launch
-// error) rather than hanging the card
-static __device__ void mbar_wait0(uint64_t* bar) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  for (unsigned spins = 0; !done; ++spins) {
-    if (spins == (1u << 26)) __trap();
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a)
-        : "memory");
-  }
-}
-
 // Starts the copy of nn floats from src (global) into the slot and returns
 // where the copy lands: slot + (src's float offset mod 4), so that source
 // and destination share their alignment mod 16 bytes. The 16-byte-aligned
 // body goes by bulk copies (thread 0 starts them, 32 KB each) on bar; the
-// scalar head and tail by plain loads. Every thread must mbar_wait0(bar)
+// scalar head and tail by plain loads. Every thread must mbar_wait(bar, 0)
 // (and a __syncthreads must pass) before reading the slot.
 static __device__ float* kinv_copy_start(const float* src, int nn,
                                          float* slot, uint64_t* bar) {
@@ -206,26 +181,9 @@ static __device__ float* kinv_copy_start(const float* src, int nn,
   const int head = min((4 - mis) & 3, nn);
   const int body = ((nn - head) / 4) * 4;
   if (threadIdx.x == 0) {
-    const uint32_t b = smem_u32(bar);
-    if (body > 0) {
-      const uint32_t bytes = (uint32_t)body * 4u;
-      asm volatile(
-          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
-          "r"(bytes)
-          : "memory");
-      for (uint32_t off = 0; off < bytes; off += 32768u) {
-        const uint32_t chunk = min(32768u, bytes - off);
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-            " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst + head) + off),
-            "l"(reinterpret_cast<const char*>(src + head) + off), "r"(chunk),
-            "r"(b)
-            : "memory");
-      }
-    } else {
-      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(b)
-                   : "memory");
-    }
+    const uint32_t bytes = (uint32_t)body * 4u;
+    mbar_arrive(bar, bytes);
+    bulk_load(dst + head, src + head, bytes, bar);
   }
   for (int e = threadIdx.x; e < head; e += NT) dst[e] = src[e];
   for (int e = head + body + threadIdx.x; e < nn; e += NT) dst[e] = src[e];

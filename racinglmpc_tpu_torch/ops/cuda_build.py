@@ -37,6 +37,15 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DEFINES: tuple = ()
 
+# one H100 SXM: SMs, shared memory of an SM and the most one CTA may take
+# (bytes), the runtime's shared-memory reservation per CTA, registers of an
+# SM
+N_SM = 132
+SMEM_PER_SM = 233_472
+SMEM_PER_CTA = 232_448
+SMEM_RESERVED = 1_024
+REGS_PER_SM = 65_536
+
 
 class LaunchCounter:
     """Launches of one kernel; its wrapper adds one per launch."""
@@ -164,6 +173,15 @@ def library() -> ctypes.CDLL:
     return build(DEFINES).lib
 
 
+def bind(lib: ctypes.CDLL, name: str, argtypes, restype=ctypes.c_int):
+    """``lib.name`` with its prototype set (once per library: callers keep
+    the result, e.g. behind ``functools.lru_cache``)."""
+    fn = getattr(lib, name)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
 def check(err: int) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launch function."""
     if err != 0:
@@ -172,7 +190,11 @@ def check(err: int) -> None:
 
 
 def stream_ptr() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    """The current CUDA stream of the current device (the raw handle, read
+    without building a ``torch.cuda.Stream``: a few microseconds less per
+    launch)."""
+    return ctypes.c_void_p(
+        torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -67,9 +67,9 @@ LAYOUTS = ("resident", "stream")
 
 # shared memory of one H100 SM and the most one CTA may take (bytes), the
 # runtime's reservation per CTA, and the kernels' constants (qp_common.cuh)
-SMEM_PER_SM = 233_472
-SMEM_PER_CTA = 232_448
-SMEM_RESERVED = 1_024
+SMEM_PER_SM = cuda_build.SMEM_PER_SM
+SMEM_PER_CTA = cuda_build.SMEM_PER_CTA
+SMEM_RESERVED = cuda_build.SMEM_RESERVED
 _NT, _TILE, _TK = 512, 64, 16
 # the least nonzero share of A and P a plan's cap must hold: the main
 # path's FTOCPs hold 1.1%, the MPC stages' 2.0% (LTI)

@@ -1,19 +1,25 @@
 """Kernel B3: the batched plant rollout (100 Euler substeps), CUDA + plain.
 
 Replaces ``racinglmpc_tpu/ops/pallas_rollout.py::_kernel`` (through
-``plant_step_batch``). The kernel (``csrc/cuda_rollout.cu``) runs one
-thread per scenario with the state in registers for all substeps; the
-vehicle scalars and the segment table ride in the launch arguments. It
-uses ``atan2f``/``atanf`` as ``models/dynamics.py`` does (the Pallas
-kernel's polynomial atan only existed because Mosaic has no atan), and the
-curvature lookup is the same ``searchsorted`` rule as the plain path.
+``plant_step_batch``). The kernel (``csrc/cuda_rollout.cu``) runs each
+scenario on four lanes in lockstep: lanes 0 and 1 take the front and rear
+tire (``atan2f``, ``atanf``, ``sinf``), lanes 2 and 3 the sine and cosine
+of epsi and psi, each lane one of the four divisions, and every lane then
+holds the whole state; the segment index is carried across substeps. It
+computes every value by the expression ``models/dynamics.py`` uses
+(``atan2f``/``atanf``: the Pallas kernel's polynomial atan only existed
+because Mosaic has no atan), and the curvature lookup is the same
+``searchsorted`` rule as the plain path.
 
 On CPU tensors :func:`plant_step_batch` runs the plain version; on CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel or raises. The launch arguments (vehicle
+scalars, segment table, substeps) are built once per (vehicle, table,
+config) and the C prototype once per library.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -35,10 +41,18 @@ class _Params(ctypes.Structure):
     ]
 
 
-def _params(vp: VehicleParams, table: TrackTable, cfg: SimConfig) -> _Params:
+@functools.lru_cache(maxsize=64)
+def launch_params(vp: VehicleParams, table: TrackTable,
+                  cfg: SimConfig) -> _Params:
+    """The kernel's launch arguments for this vehicle, track and config
+    (cached: the kernel takes them by value, so one struct serves every
+    launch)."""
     if len(table.s0) > MAX_SEG:
         raise ValueError(f"track has {len(table.s0)} segments; the kernel "
                          f"takes at most {MAX_SEG}")
+    if any(b < a for a, b in zip(table.s0, table.s0[1:])):
+        raise ValueError("segment starts must not decrease: the kernel "
+                         "carries the segment index across substeps")
     p = _Params(*(float(v) for v in vp))
     p.dT = cfg.delta_t
     p.L = table.total_len
@@ -48,6 +62,12 @@ def _params(vp: VehicleParams, table: TrackTable, cfg: SimConfig) -> _Params:
         p.s0[i] = s
         p.curv[i] = k
     return p
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(lib: ctypes.CDLL):
+    return cuda_build.bind(lib, "rl_rollout", [_Params] + [
+        ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
 
 
 def plant_step_batch_plain(x, x_glob, u, vp: VehicleParams, trk: Track,
@@ -69,16 +89,13 @@ def plant_step_batch(x: torch.Tensor, x_glob: torch.Tensor, u: torch.Tensor,
     B = x.shape[0]
     for t, name, w in ((x, "x", 6), (x_glob, "x_glob", 6), (u, "u", 2)):
         cuda_build.expect(t, name, (B, w))
-    params = _params(vp, table if table is not None else track_table(trk), cfg)
-    ox = torch.empty_like(x)
-    oxg = torch.empty_like(x_glob)
-    lib = cuda_build.library()
-    lib.rl_rollout.argtypes = [_Params] + [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_void_p]
-    lib.rl_rollout.restype = ctypes.c_int
+    params = launch_params(vp, table if table is not None
+                           else track_table(trk), cfg)
+    ox, oxg = torch.empty((2, B, 6), dtype=x.dtype, device=x.device)
     P = cuda_build.ptr
-    err = lib.rl_rollout(params, P(x), P(x_glob), P(u), P(ox), P(oxg), B,
-                         cuda_build.stream_ptr())
+    err = _launcher(cuda_build.library())(
+        params, P(x), P(x_glob), P(u), P(ox), P(oxg), B,
+        cuda_build.stream_ptr())
     launches.n += 1
     cuda_build.check(err)
     return ox, oxg

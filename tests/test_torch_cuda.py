@@ -65,6 +65,102 @@ def test_sysid_matches_plain(setup):
             assert float((a - b).abs().max()) < 1e-3
 
 
+def _sysid_vs_plain(cfg, trk, st, store):
+    xl = st.x_lin[:, :cfg.lmpc.N].contiguous()
+    ul = st.u_lin.contiguous()
+    k = cuda_sysid.local_linearization_horizon(store, trk, xl, ul, cfg.lmpc,
+                                               0.1)
+    p = cuda_sysid.local_linearization_horizon_plain(store, trk, xl, ul,
+                                                     cfg.lmpc, 0.1)
+    return k, max(float((a - b).abs().max()) for a, b in zip(k, p))
+
+
+def test_sysid_store_of_1024_rows(setup):
+    """The default model_pts: the store zero-padded to T = 1024 (two lap
+    buffers still fit two CTAs per SM)."""
+    cfg, trk, st, _ = setup
+    pad = (0, 0, 0, 1024 - st.store.x.shape[2])
+    store = sysid.LapStore(torch.nn.functional.pad(st.store.x, pad),
+                           torch.nn.functional.pad(st.store.u, pad),
+                           st.store.steps)
+    assert _sysid_vs_plain(cfg, trk, st, store)[1] < 1e-3
+
+
+def test_sysid_ties_go_to_the_first_index(setup):
+    """Rows 2i and 2i+1 share their features but not their successors, so
+    the 7th pick of a lap (one row of a tied pair) decides C: taking the
+    later index would give it another successor."""
+    cfg, trk, st, _ = setup
+    x, u = st.store.x.clone(), st.store.u.clone()
+    T = x.shape[2]
+    src = torch.arange(T, device="cuda") // 2
+    x[:, :, :, :3] = st.store.x[:, :, src, :3]
+    u[:] = st.store.u[:, :, src]
+    store = sysid.LapStore(x, u, st.store.steps)
+    assert _sysid_vs_plain(cfg, trk, st, store)[1] < 1e-3
+
+
+def test_sysid_ragged_and_empty_laps(setup):
+    """A lap with fewer valid rows than knn (its other picks weigh 0), a
+    short lap and an empty one."""
+    cfg, trk, st, _ = setup
+    steps = st.store.steps.clone()
+    steps[:, 0] = 4
+    steps[:, 1] = 37
+    steps[:, 3] = sysid._EMPTY
+    store = st.store._replace(steps=steps)
+    assert _sysid_vs_plain(cfg, trk, st, store)[1] < 1e-3
+
+
+def test_rollout_crosses_a_segment_and_the_finish_line(setup):
+    """Scenarios that leave a segment, and the track, inside one period:
+    the carried segment index must be found again."""
+    cfg, trk, _, x0 = setup
+    table = track_table(trk)
+    x = x0.clone()
+    x[:, 0] = 1.0
+    x[:, 1:4] = 0.0
+    x[:, 5] = 0.05
+    starts = [table.s0[1 + i % (len(table.s0) - 1)] for i in range(B // 2)]
+    x[0::2, 4] = torch.tensor(starts, device="cuda") - 0.02
+    x[1::2, 4] = table.total_len - 0.03
+    u = torch.full((B, 2), 0.05, device="cuda")
+    k = cuda_rollout.plant_step_batch(x, x.clone(), u, VehicleParams(), trk,
+                                      cfg.sim, table=table)
+    p = cuda_rollout.plant_step_batch_plain(x, x.clone(), u,
+                                            VehicleParams(), trk, cfg.sim)
+    for a, b in zip(k, p):
+        assert float((a - b).abs().max()) < 1e-4
+    assert bool((k[0][1::2, 4] > table.total_len).all())
+    seg = torch.tensor(table.s0, device="cuda")
+    assert bool((torch.searchsorted(seg, k[0][0::2, 4].contiguous(),
+                                    right=True)
+                 > torch.searchsorted(seg, x[0::2, 4].contiguous(),
+                                      right=True)).all())
+
+
+def test_rollout_and_sysid_same_bits_twice(setup):
+    cfg, trk, st, x0 = setup
+    u = torch.full((B, 2), 0.1, device="cuda")
+    runs = [cuda_rollout.plant_step_batch(x0, x0.clone(), u, VehicleParams(),
+                                          trk, cfg.sim, table=track_table(trk))
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    runs = [_sysid_vs_plain(cfg, trk, st, st.store)[0] for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_sysid_plan_matches_kernel_source(setup):
+    cfg, _, st, _ = setup
+    K, T = st.store.x.shape[1:3]
+    for rows in (T, 1024):
+        pl = cuda_sysid.plan(K, rows, cfg.lmpc.N)
+        assert cuda_sysid.smem_bytes_on_card(rows, cfg.lmpc.N,
+                                             pl.nbuf) == pl.nbytes
+        assert cuda_sysid.ctas_per_sm_on_card(rows, cfg.lmpc.N,
+                                              pl.nbuf) == pl.ctas_per_sm
+
+
 def test_admm_matches_plain(setup):
     cfg, trk, st, x0 = setup
     ctrl = lmpc_mod.make_lmpc(cfg.lmpc, trk, cfg.solver, 0.1)
