@@ -55,11 +55,25 @@ def gaussian_noise(batch: int, ctrl_dims: int, sim_cfg: SimConfig,
     return draw
 
 
+def scalar_vp(vp: VehicleParams) -> bool:
+    """Every field a Python number or a 0-dim tensor: one vehicle for the
+    whole batch, which is all the rollout kernel takes."""
+    return all(not torch.is_tensor(v) or v.dim() == 0 for v in vp)
+
+
+def use_kernel_rollout(sim_cfg: SimConfig, vp: VehicleParams) -> bool:
+    """Engagement rule of the rollout kernel: asked for by the config, and
+    scalar vehicle parameters (a batched ``vp`` takes the plain plant step,
+    as the reference's fused rollout engages for scalar params only)."""
+    return sim_cfg.use_pallas_rollout and scalar_vp(vp)
+
+
 def plant_step(plant: PlantState, u, vp: VehicleParams, trk: Track,
                sim_cfg: SimConfig, draws, table: TrackTable) -> PlantState:
-    """One period for the batch: the rollout kernel when the config asks
-    for it (its plain version on CPU tensors), then the noise."""
-    if sim_cfg.use_pallas_rollout:
+    """One period for the batch: the rollout kernel where
+    :func:`use_kernel_rollout` engages it (its plain version on CPU
+    tensors), then the noise."""
+    if use_kernel_rollout(sim_cfg, vp):
         nx, nxg = cuda_rollout.plant_step_batch(plant.x, plant.x_glob, u, vp,
                                                 trk, sim_cfg, table=table)
         return PlantState(x=dynamics.apply_noise(nx, draws, sim_cfg),
