@@ -53,8 +53,11 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    (batch 256): |dx| < 3e-2 after 16 fixed iterations, >= 90% solved at
    tolerance, the same warm/cold decision on every lane whose |I - K X0|_F
    lies farther than 1e-3 from 0.9, max|I - K Kinv| < 50 ns_tol for the
-   kernel's Kinv on every lane; times both; and the structured KKT inverse
-   on the throughput_max LTV stage's K: max|I - K X| < 5e-2;
+   kernel's Kinv on every lane, bit-identical results from two calls, and
+   B4's plan (``cuda_qp_fused.plan``) against the kernel source's count and
+   the card's occupancy; times both (B4 by CUDA events and in a
+   torch.profiler window); and the structured KKT inverse on the
+   throughput_max LTV stage's K: max|I - K X| < 5e-2;
 7. runs the LMPC stage for 2 laps with a checkpoint, resumes it to 4 laps
    and requires the lap steps of phase 4's uninterrupted run (the LMPC
    noise does not depend on which stages ran before it);
@@ -259,9 +262,19 @@ def fused_phase(torch, qp_mod, cuda_qp_fused, runs, trk, launches):
         args = [kw.pop(n) for n in FUSED_NAMES]
         k = cuda_qp_fused.admm_iterate_fused(*args, **kw)
         p = cuda_qp_fused.admm_iterate_fused_plain(*args, **kw)
+        check(f"fused_admm_{stage}_same_bits_twice", all(
+            bool(torch.equal(x, y)) for x, y in zip(
+                k, cuda_qp_fused.admm_iterate_fused(*args, **kw))))
         a = dict(zip(FUSED_NAMES, args))
         B, n = a["q"].shape
         m = a["l"].shape[1]
+        pl = cuda_qp_fused.plan(n, m, B)
+        card = (cuda_qp_fused.smem_bytes_on_card(n, m),
+                cuda_qp_fused.ctas_per_sm_on_card(n, m))
+        print(f"[chip_smoke] B4 plan at n={n}, m={m}, batch {B}: {pl}; "
+              f"kernel source {card[0]} B, CTAs per SM on the card {card[1]}")
+        check(f"fused_admm_{stage}_plan_matches_card",
+              card == (pl.nbytes, pl.ctas_per_sm))
         K = cuda_qp_fused.build_k(a["P"], a["A"], a["rho"], cfg.solver.sigma)
         eye = torch.eye(n, device=K.device)
         R0 = eye - K @ a["kinv0"]
@@ -299,14 +312,17 @@ def fused_phase(torch, qp_mod, cuda_qp_fused, runs, trk, launches):
         bms, by = bound_ms(nbytes(*args, k.x, k.y, k.pri, k.dua, k.iters,
                                   k.kinv, k.ns_resid), ops)
         print(f"[chip_smoke] kernel fused_admm ({stage}, batch {B}): "
-              f"{ms:.4f} ms (plain {pms:.4f} ms, bound {bms:.4f} ms by "
-              f"{by}); warm {int(k.warm.sum())}/{B}, NS iters mean kernel "
-              f"{float(p.ns_iters.float().mean()):.2f} (plain count), ADMM "
+              f"{ms:.4f} ms (device {dms}, plain {pms:.4f} ms, bound "
+              f"{bms:.4f} ms by {by}); warm {int(k.warm.sum())}/{B}, NS "
+              f"iters mean kernel {float(k.ns_iters.float().mean()):.2f} "
+              f"plain {float(p.ns_iters.float().mean()):.2f}, ADMM "
               f"iters mean kernel {float(k.iters.float().mean()):.2f} plain "
               f"{float(p.iters.float().mean()):.2f}, ns_resid max "
               f"{float(k.ns_resid.max()):.2e}")
         info[stage] = dict(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
-                           bound_by=by)
+                           bound_by=by, ns_iters=float(
+                               k.ns_iters.float().mean()),
+                           ctas_per_sm=card[1])
     return dict(name="fused_admm", route="cuda",
                 source="racinglmpc_tpu_torch/csrc/cuda_qp_fused.cu",
                 replaces="racinglmpc_tpu/ops/pallas_qp.py:424",
@@ -314,7 +330,10 @@ def fused_phase(torch, qp_mod, cuda_qp_fused, runs, trk, launches):
                 ms=info["ltv"]["ms"], device_ms=info["ltv"]["device_ms"],
                 plain_ms=info["ltv"]["plain_ms"],
                 bound_ms=info["ltv"]["bound_ms"],
-                bound_by=info["ltv"]["bound_by"], library_ms=None)
+                bound_by=info["ltv"]["bound_by"], library_ms=None,
+                ns_iters=info["ltv"]["ns_iters"],
+                ctas_per_sm=info["ltv"]["ctas_per_sm"],
+                lti=info["lti"])
 
 
 def structured_phase(torch, qp_mod, run, trk):

@@ -45,10 +45,12 @@
 // a chain of 8 dependent block-wide passes (two over Kinv in shared memory,
 // bound by its ~1,250 shared-memory wavefronts each), ~13K SM cycles, and a
 // call lasts as long as its slowest scenario's iterations (PERF.md).
-// The rare rescue lanes build K2 and run the Newton-Schulz passes over a
-// 64x64-tiled float32 GEMM with the n x n matrices in a global workspace
-// (the tiles overlay the Kinv slot), then copy X into the slot and run
-// their chunks on the resident core; other lanes' CTAs return at once.
+// The rare rescue lanes build K2 and run the Newton-Schulz passes on B4's
+// product core (qp_common.cuh: the whole n x n output in registers, the
+// operands staged by producer warps) with the n x n matrices in a global
+// workspace (the slabs overlay the Kinv slot), then copy X into the slot
+// and run their chunks on the resident core; other lanes' CTAs return at
+// once.
 #include "qp_common.cuh"
 
 // (NT, 1): without the 1, ptxas may cap this kernel at 64 registers and
@@ -106,7 +108,7 @@ admm_main_resident(const QPParams p, const float* P_, const float* Kinv_,
 // kpad: per-scenario pad-block scalar of Kinv (B4's refreshed inverse), or
 // nullptr when Kinv's pad block is zero (B1)
 template <bool RES>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 admm_rescue(const QPParams p, const float* P_, const float* Kinv_,
             const float* A_, const float* nvecs, const float* vecs,
             const float* cinv, const float* kpad, float* xo, float* zo,
@@ -133,19 +135,17 @@ admm_rescue(const QPParams p, const float* P_, const float* Kinv_,
     slot = ctxp + ctx_floats(n, m);
   }
   Ctx c = carve(ctxp, n, m);
-  float* As = slot;
-  float* Bs = As + TILE * TK;
-  float* dg = Bs + TILE * TK;
+  float* stage = slot;   // the product core's slabs, then the diagonal
+  float* dg = stage + 2 * PK * (geo(n).sa + 8 * geo(n).cells);
   float* K2 = ws + (size_t)b * 4 * n * n;
   float* X = K2 + (size_t)n * n;
   float* Y = X + (size_t)n * n;
   float* R = Y + (size_t)n * n;
   load_state(p, c, b, nvecs, vecs, xo, zo, yo);
   const float s_r = p.rescue_rho_scale;
-  float mx, sq;
 
   // K2 = (A' (rho A)) s + P + sigma I and its Jacobi init
-  const float cjm = build_k_jacobi(p, c, P, A, s_r, K2, dg, As, Bs);
+  const float cjm = k_jacobi(p, c, P, A, s_r, K2, dg, stage, nullptr);
   const float xj_pad = 1.f / cjm;
 
   // warm test on Kinv / s: the pad block adds n_pad (1 - kp/s)^2 to the
@@ -157,19 +157,20 @@ admm_rescue(const QPParams p, const float* P_, const float* Kinv_,
   if (pad_sq < 0.81f) {
     for (size_t e = tid; e < (size_t)n * n; e += NT) X[e] = Kinv[e] / s_r;
     __syncthreads();
-    block_gemm(n, n, K2, n, false, X, nullptr, R, EPI_RESID, nullptr, 0.f,
-               0.f, As, Bs, c.red, mx, sq);
-    const float r0f = sqrtf(sq + pad_sq);
+    product<OP_RESID>(n, n, K2, X, nullptr, 1.f, nullptr, 0.f, R, stage,
+                      c.red, nullptr);
+    const float r0f = sqrtf(frob_sq(n, R, c.red) + pad_sq);
     use_warm = isfinite(r0f) && r0f < 0.9f;
   }
   if (!use_warm) write_jacobi(n, dg, cjm, X);
   float xp = use_warm ? kp / s_r : xj_pad;
-  const float r1 = ns_run(p, n, K2, X, Y, R, xp, As, Bs, c.red);
+  int its;
+  const float r1 = ns_run(p, n, K2, X, Y, R, xp, stage, c.red, &its, nullptr);
   if (!isfinite(r1) || r1 > 50.f * p.ns_tol) {
     write_jacobi(n, dg, cjm, X);
     xp = xj_pad;
   }
-  ns_run(p, n, K2, X, Y, R, xp, As, Bs, c.red);
+  ns_run(p, n, K2, X, Y, R, xp, stage, c.red, &its, nullptr);
 
   // iterations at rho * s with K2inv = X
   for (int i = tid; i < m; i += NT) {
@@ -181,7 +182,7 @@ admm_rescue(const QPParams p, const float* P_, const float* Kinv_,
   int iters = it_main + p.rescue_max_iter;
   bool rdone = false;
   float pri = stats[b * 2 + 0], dua = stats[b * 2 + 1];
-  if (RES) {   // X into the slot (the GEMM tiles are done with)
+  if (RES) {   // X into the slot (the product slabs are done with)
     for (size_t e = tid; e < (size_t)n * n; e += NT) slot[e] = X[e];
     __syncthreads();
     if (fits)
@@ -210,7 +211,7 @@ extern "C" long long rl_admm_smem_bytes(int n, int m, int nnz_cap,
                                         int layout, int main) {
   if (layout == LAYOUT_RESIDENT)
     return (long long)resident_layout(n, m, nnz_cap).total;
-  return (long long)((main ? ctx_floats(n, m) : gemm_ctx_floats(n, m)) *
+  return (long long)((ctx_floats(n, m) + (main ? 0 : prologue_floats(n))) *
                      sizeof(float));
 }
 

@@ -21,27 +21,47 @@
 // scalar, and (warm start taken, Newton-Schulz iterations) for diagnostics.
 //
 // Bound on this card: the prologue's operations, 2 m n^2 for K as a dense
-// GEMM (what A's nonzeros need is far less: sum over rows of nnz(row)^2)
-// and 4 n^3 per Newton-Schulz iteration (~20 on a cold LTV build: ~0.25
-// GFLOP per scenario at n = 146), dominate. K and X are 85-160 KB each at
-// n = 146-200 and do not fit in shared memory together, so K, X, Y and R
-// live in a per-scenario global workspace (4 n^2 floats, L2-resident per
-// CTA) and the products run as B1's rescue does: one CTA of 512 threads
-// per scenario (each scenario exits its own Newton-Schulz loop and its own
-// ADMM loop, the point of the fused kernel) over a 64x64-tiled float32
-// GEMM on the CUDA cores, whose tiles overlay the Kinv slot of B1's
-// resident layout. The ADMM phase then runs on B1's resident core: A and
-// P compressed into shared memory at the start (one read), the refreshed
-// X copied into the slot, and the loop reads only shared memory, with the
-// same bits as the streaming core; shapes that do not fit
-// (ops/cuda_qp.py:smem_plan) and scenarios whose nonzeros overflow the
-// cap run the streaming core, flagged and counted. The K build and the
-// Newton-Schulz GEMM (tensor cores, wgmma in split-float32; TMA) are left
-// for later work.
+// product (what A's nonzeros need is far less: sum over rows of
+// nnz(row)^2) and 4 n^3 per Newton-Schulz iteration (~20 on a cold LTV
+// build: ~0.25 GFLOP per scenario at n = 146), full float32 FMAs on the
+// CUDA cores (TF32 and split-float32 tensor-core products are ruled out:
+// every product must keep its fmaf chain, see below). One CTA of 512
+// threads per scenario (each scenario exits its own Newton-Schulz loop and
+// its own ADMM loop, the point of the fused kernel); K, X, Y and R live in
+// a per-scenario global workspace (4 n^2 floats: K and X are 85-160 KB
+// each at n = 146-200 and do not fit in shared memory together). Each
+// product (qp_common.cuh:product, shared with B1's rescue) holds the whole
+// n x n output in registers,
+// 8 x 8 outputs a thread read as float4 fragments, and streams the two
+// operands once through shared memory in 16-deep slabs by cp.async, double
+// buffered with one barrier a slab, issued by the warps that hold no
+// output cells, so the loads hide behind the FMAs; its slab buffers
+// overlay the Kinv slot of B1's resident layout. The 8 x 8
+// cells need over 64 registers a thread, as B1's core does, so one CTA
+// fits an SM and a batch of 256 runs in two waves (cuda_qp_fused.py:plan).
+// Every output is one fmaf chain over k in order, as in the first port's
+// 64 x 64-tiled GEMM (qp_common.cuh:block_gemm, which B1's rescue still
+// runs), and the epilogues are its operations pinned with __fadd_rn /
+// __fsub_rn: the refreshed inverse, the Newton-Schulz counts and the warm
+// decisions keep their bits. The ADMM phase then runs on B1's resident
+// core: A and P compressed into shared memory at the start (one read), the
+// refreshed X copied into the slot, and the loop reads only shared memory,
+// with the same bits as the streaming core; shapes that do not fit
+// (ops/cuda_qp.py:smem_plan) and scenarios whose nonzeros overflow the cap
+// run the streaming core, flagged and counted.
 #include "qp_common.cuh"
 
+#ifdef QP_PHASES
+static __device__ long long fused_phase[FPH_N];   // qp_common.cuh: FPH_*
+#define FUSED_CLK fused_phase
+#else
+#define FUSED_CLK static_cast<long long*>(nullptr)
+#endif
+
+// One CTA per SM by registers (the 8 x 8 cells and B1's core need over 64
+// a thread at 512 threads): the batch runs in waves of 132.
 template <bool RES>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 admm_fused(const QPParams p, const float* P_, const float* A_,
            const float* kinv0_, const int* warm_ok, const float* nvecs,
            const float* vecs, const float* cinv, const float* x0,
@@ -68,39 +88,43 @@ admm_fused(const QPParams p, const float* P_, const float* A_,
     slot = ctxp + ctx_floats(n, m);
   }
   Ctx c = carve(ctxp, n, m);
-  float* As = slot;
-  float* Bs = As + TILE * TK;
-  float* dg = Bs + TILE * TK;
+  float* stage = slot;   // the product core's slabs, then the diagonal
+  float* dg = stage + 2 * PK * (geo(n).sa + 8 * geo(n).cells);
   float* K = ws + (size_t)b * 4 * nn;
   float* X = K + nn;
   float* Y = X + nn;
   float* R = Y + nn;
   load_state(p, c, b, nvecs, vecs, x0, z0, y0);
+  long long* clk = FUSED_CLK;
+  PHASE_START
 
   // K = A'(rho A) + P + sigma I and its Jacobi init
-  const float cjm = build_k_jacobi(p, c, P, A, 1.f, K, dg, As, Bs);
+  const float cjm = k_jacobi(p, c, P, A, 1.f, K, dg, stage, clk);
   const float xj_pad = 1.f / cjm;
+  CLK_MARK(clk, FPH_KBUILD)
 
   bool use_warm = false;
   if (warm_ok[b]) {
     const float* X0 = kinv0_ + (size_t)b * nn;
     for (size_t e = tid; e < nn; e += NT) X[e] = X0[e];
     __syncthreads();
-    float mx, sq;
-    block_gemm(n, n, K, n, false, X, nullptr, R, EPI_RESID, nullptr, 0.f,
-               0.f, As, Bs, c.red, mx, sq);
-    const float r0f = sqrtf(sq);
+    product<OP_RESID>(n, n, K, X, nullptr, 1.f, nullptr, 0.f, R, stage,
+                      c.red, clk);
+    const float r0f = sqrtf(frob_sq(n, R, c.red));
     use_warm = isfinite(r0f) && r0f < 0.9f;
   }
   if (!use_warm) write_jacobi(n, dg, cjm, X);
+  CLK_MARK(clk, FPH_WARM)
   float xp = use_warm ? 1.f : xj_pad;
   int it1 = 0, it2 = 0;
-  const float r1 = ns_run(p, n, K, X, Y, R, xp, As, Bs, c.red, &it1);
+  const float r1 = ns_run(p, n, K, X, Y, R, xp, stage, c.red, &it1, clk);
   if (!isfinite(r1) || r1 > 50.f * p.ns_tol) {
     write_jacobi(n, dg, cjm, X);
     xp = xj_pad;
   }
-  const float ns_resid = ns_run(p, n, K, X, Y, R, xp, As, Bs, c.red, &it2);
+  const float ns_resid =
+      ns_run(p, n, K, X, Y, R, xp, stage, c.red, &it2, clk);
+  CLK_MARK(clk, FPH_NS)
 
   float* ko = kinv_out + (size_t)b * nn;
   for (size_t e = tid; e < nn; e += NT) ko[e] = X[e];
@@ -110,9 +134,10 @@ admm_fused(const QPParams p, const float* P_, const float* A_,
     ns_info[b * 2 + 0] = use_warm ? 1 : 0;
     ns_info[b * 2 + 1] = it1 + it2;
   }
-  if (RES) {   // X into the slot (the GEMM tiles are done with)
+  if (RES) {   // X into the slot (the product buffers are done with)
     for (size_t e = tid; e < nn; e += NT) slot[e] = X[e];
     __syncthreads();
+    CLK_MARK(clk, FPH_COPY)
     if (fits)
       admm_loop(p, c, b, SparseOps(s, slot, n, m), cinv[b], false, xo, zo,
                 yo, stats, flags, streamed);
@@ -123,6 +148,34 @@ admm_fused(const QPParams p, const float* P_, const float* A_,
     admm_loop(p, c, b, DenseOps{P, A, X, n, m}, cinv[b], true, xo, zo, yo,
               stats, flags, streamed);
   }
+  CLK_MARK(clk, FPH_ADMM)
+}
+
+// dynamic shared memory of a launch in a layout
+extern "C" long long rl_fused_smem_bytes(int n, int m, int nnz_cap,
+                                         int layout) {
+  return (long long)(layout == LAYOUT_RESIDENT
+                         ? resident_layout(n, m, nnz_cap).total
+                         : 4 * (ctx_floats(n, m) + prologue_floats(n)));
+}
+
+static const void* fused_kernel(int layout) {
+  return layout == LAYOUT_RESIDENT
+             ? reinterpret_cast<const void*>(admm_fused<true>)
+             : reinterpret_cast<const void*>(admm_fused<false>);
+}
+
+// CTAs per SM the card runs of the kernel in a layout (the occupancy
+// calculator: shared memory, registers and threads); < 0 on an error
+extern "C" int rl_fused_ctas_per_sm(int n, int m, int nnz_cap, int layout) {
+  const size_t smem = rl_fused_smem_bytes(n, m, nnz_cap, layout);
+  const void* fn = fused_kernel(layout);
+  if (set_smem(fn, smem)) return -1;
+  int ctas = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, NT, smem) !=
+      cudaSuccess)
+    return -1;
+  return ctas;
 }
 
 extern "C" int rl_admm_fused(QPParams p, const float* P, const float* A,
@@ -135,15 +188,11 @@ extern "C" int rl_admm_fused(QPParams p, const float* P, const float* A,
                              int* ns_info, float* ws, int* streamed,
                              int layout, int B, void* stream) {
   if (B <= 0) return 0;
-  const bool res = layout == LAYOUT_RESIDENT;
-  const size_t smem = res ? resident_layout(p.n, p.m, p.nnz_cap).total
-                          : gemm_ctx_floats(p.n, p.m) * sizeof(float);
-  const void* fn = res ? reinterpret_cast<const void*>(admm_fused<true>)
-                       : reinterpret_cast<const void*>(admm_fused<false>);
-  int e = set_smem(fn, smem);
+  const size_t smem = rl_fused_smem_bytes(p.n, p.m, p.nnz_cap, layout);
+  int e = set_smem(fused_kernel(layout), smem);
   if (e) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (res)
+  if (layout == LAYOUT_RESIDENT)
     admm_fused<true><<<B, NT, smem, st>>>(
         p, P, A, kinv0, warm_ok, nvecs, vecs, cinv, x0, z0, y0, xo, zo, yo,
         stats, flags, kinv_out, ns_out, kpad_out, ns_info, ws, streamed);
@@ -153,3 +202,16 @@ extern "C" int rl_admm_fused(QPParams p, const float* P, const float* A,
         stats, flags, kinv_out, ns_out, kpad_out, ns_info, ws, streamed);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef QP_PHASES
+// B4's prologue clocks into host[FPH_N]; reset: zero them
+extern "C" int rl_fused_phases(long long* host, int reset) {
+  if (reset) {
+    const long long zero[FPH_N] = {0};
+    return static_cast<int>(
+        cudaMemcpyToSymbol(fused_phase, zero, sizeof(zero)));
+  }
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(host, fused_phase, FPH_N * sizeof(long long)));
+}
+#endif

@@ -3,8 +3,8 @@
 // layouts of the ADMM core (resident: Kinv and the compressed A and P in
 // shared memory; stream: Kinv, A and P read from global memory in every
 // product), one ADMM iteration, the residual check, the check_every chunks,
-// the main ADMM loop of one scenario, the in-CTA tiled float32 GEMM and the
-// Newton-Schulz passes over a global workspace.
+// the main ADMM loop of one scenario, and the Newton-Schulz prologue (its
+// product core and passes over a global workspace).
 // "v.M" products contract M's rows (v @ M, as the Pallas kernels' row
 // vectors do); "M v" products contract its columns.
 #pragma once
@@ -23,8 +23,7 @@ struct QPParams {
 
 #define NT 512          // threads per CTA
 #define GSPLIT 2        // row groups of the v.M products (NT / 256)
-#define TILE 64
-#define TK 16
+#define PK 16           // k-values of a staged slab of the product core
 #define LONG_ROW 16     // a row of A with more entries takes a whole warp
 #define LMAX 8          // long rows of A listed for warps
 #define CU 8            // elements per thread per tile of the compaction
@@ -39,6 +38,17 @@ enum { LAYOUT_STREAM = 0, LAYOUT_RESIDENT = 1 };
 // to the phase's counter (this card has no kernel profiler).
 enum { PH_VK, PH_AV, PH_VA, PH_VP_VA, PH_AV_UPDATE, PH_CHECK, PH_PROLOGUE,
        PH_WAIT, PH_N };
+// B4's prologue clocks (cuda_qp_fused.cu, admm_bench.py --kernel b4
+// --phases), into the array a kernel hands to the product core: SM cycles
+// of thread 0 of scenario 0 in the K build (with the Jacobi init), the
+// warm test, the residual and the update products of both Newton-Schulz
+// passes, the passes as a whole, the inverse's copies and the ADMM loop;
+// then, summed over every product, thread 0's (a cell thread's) cycles
+// waiting at the slab barriers, multiplying, and in the epilogues, and the
+// first producer's cycles issuing slabs and waiting for them
+enum { FPH_KBUILD, FPH_WARM, FPH_NS_RESID, FPH_NS_UPDATE, FPH_NS, FPH_COPY,
+       FPH_ADMM, FPH_C_WAIT, FPH_C_MATH, FPH_C_EPI, FPH_P_ISSUE, FPH_P_WAIT,
+       FPH_N };
 #ifdef QP_PHASES
 static __device__ long long qp_phase[PH_N];
 #define PHASE_START long long qp_t0_ = clock64();
@@ -48,9 +58,29 @@ static __device__ long long qp_phase[PH_N];
     qp_phase[k] += t_ - qp_t0_;                       \
     qp_t0_ = t_;                                      \
   }
+// the same into clk[k] (B4's prologue clocks, cuda_qp_fused.cu), where clk
+// is given
+#define CLK_MARK(clk, k)                                       \
+  if ((clk) && threadIdx.x == 0 && blockIdx.x == 0) {          \
+    const long long t_ = clock64();                            \
+    (clk)[k] += t_ - qp_t0_;                                   \
+    qp_t0_ = t_;                                               \
+  }
+// thread `who` of scenario 0 adds the cycles since its last TMARK (or
+// TSTART) to clk[k]
+#define TSTART long long tm_ = clock64();
+#define TMARK(clk, k, who)                                     \
+  if ((clk) && (who) && blockIdx.x == 0) {                     \
+    const long long t_ = clock64();                            \
+    (clk)[k] += t_ - tm_;                                      \
+    tm_ = t_;                                                  \
+  }
 #else
 #define PHASE_START
 #define PHASE(k)
+#define CLK_MARK(clk, k)
+#define TSTART
+#define TMARK(clk, k, who)
 #endif
 
 static __device__ __forceinline__ float nanmax(float a, float b) {
@@ -99,10 +129,34 @@ static __host__ __device__ inline size_t ctx_floats(int n, int m) {
   return (size_t)7 * r4(n) + 8 * r4(m) + NT + 4 * (NT / 32);
 }
 
-// shared memory of a streaming kernel that also runs block_gemm: the
-// context, the two GEMM tiles and one n-vector (the Jacobi diagonal)
-static __host__ __device__ inline size_t gemm_ctx_floats(int n, int m) {
-  return ctx_floats(n, m) + 2 * TILE * TK + r4(n);
+// the product core's geometry at n (its outputs in 8 x 8 cells, one per
+// thread; see product() below)
+struct Geo {
+  int cells;    // column cells (n / 8 rounded up): 8 cells columns
+  int cr;       // row cells of a pass
+  int passes;
+  int sa;       // row stride of a staged slab of the left operand (floats)
+};
+
+static __host__ __device__ inline Geo geo(int n) {
+  Geo g;
+  g.cells = (n + 7) / 8;
+  const int per = (NT - 32) / g.cells;   // at least one producer warp
+  g.passes = (g.cells + per - 1) / per;
+  g.cr = (g.cells + g.passes - 1) / g.passes;
+  // 8 cr floats padded to 4 mod 32: the transposing stores of a slab
+  // (16 k-values of a row from neighbouring threads) hit distinct banks
+  // two at a time
+  g.sa = 8 * g.cr + (36 - (8 * g.cr) % 32) % 32;
+  return g;
+}
+
+// floats of the Newton-Schulz prologue's shared memory (B4, B1's rescue):
+// the product core's two slab buffers (left operand, then right) and the
+// Jacobi diagonal
+static __host__ __device__ inline size_t prologue_floats(int n) {
+  const Geo g = geo(n);
+  return (size_t)2 * PK * (g.sa + 8 * g.cells) + r4(n);
 }
 
 // ---------------------------------------------------------------------------
@@ -111,8 +165,9 @@ static __host__ __device__ inline size_t gemm_ctx_floats(int n, int m) {
 //    pool values | CSC values | pool rows | pool cols | CSC rows |
 //    A row ptr | A col ptr | P col ptr]
 // The Kinv slot holds n*n floats plus 4 of slack (the copy keeps the
-// source's alignment mod 16 bytes); in the rescue and in B4 it holds the
-// GEMM tiles and the Jacobi diagonal until the inverse is copied in. The
+// source's alignment mod 16 bytes), and at least the prologue's buffers:
+// in the rescue and in B4 it holds the product core's slabs and the
+// Jacobi diagonal until the inverse is copied in. The
 // pool takes the nonzeros of A then P in row-major order (it is A's CSR);
 // the CSC arrays hold A's columns then P's. ops/cuda_qp.py:smem_plan
 // mirrors this count.
@@ -122,7 +177,7 @@ struct Resident {
 };
 
 static __host__ __device__ inline size_t slot_floats(int n) {
-  const size_t a = (size_t)n * n + 4, b = (size_t)2 * TILE * TK + r4(n);
+  const size_t a = (size_t)n * n + 4, b = prologue_floats(n);
   return (size_t)r4((int)(a > b ? a : b));
 }
 
@@ -842,96 +897,216 @@ static __device__ __forceinline__ void admm_loop(const QPParams& p, Ctx& c, int 
 }
 
 // ---------------------------------------------------------------------------
-// in-CTA tiled GEMM over n x n outputs
+// the Newton-Schulz prologue's product core (B4; B1's rescue)
 // ---------------------------------------------------------------------------
-enum { EPI_K2 = 0, EPI_RESID = 1, EPI_UPDATE = 2 };
+// A CTA computes an n x n product over the whole output in registers: the
+// output is cut into 8 x 8 cells, one per thread, each cell's rows and
+// columns two groups of four (4 ci.. and 4 cr + 4 ci.. rows, 4 cj.. and
+// 4 cells + 4 cj.. columns), so that a thread reads its operands as four
+// float4 per k and neighbouring threads read neighbouring 16 bytes. The
+// rows come in passes of cr row cells, as many as 15 warps hold (one pass
+// up to n = 168: at n = 146, 19 x 19 cells, 361 threads, 152 x 152
+// outputs). The warps past the cells' are the producers: they stage the
+// contraction in slabs of PK k-values into shared memory by 4-byte
+// cp.async (any alignment, zero-filled out of range), in two buffers, so
+// slab s + 1 loads while the cell warps multiply slab s, one barrier per
+// slab; the cell warps keep no load state in their registers. Every output
+// is one fmaf chain over k = 0..kd-1 in order (padded k terms are
+// fmaf(0, 0, acc)), as in the 64 x 64-tiled GEMM this core replaced, whose
+// epilogue operations it keeps (pinned below), so the products keep its
+// bits.
+static __device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                                 bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
 
-// C = epi(a . b), a(i,k) = transA ? A[k*lda+i] : A[i*lda+k],
-// b(k,j) = Bm[k*n + j] * (bscale ? bscale[k] : 1), i, j < n, k < kd.
-//   EPI_K2:     C = (acc * s + E1) + (i == j ? sigma : 0)     (E1 = P)
-//   EPI_RESID:  C = (i == j) - acc; returns max|C|, sum C^2 (block-uniform)
-//   EPI_UPDATE: C = E1 + acc                                  (E1 = X)
-static __device__ void block_gemm(int n, int kd, const float* A, int lda,
-                                  bool transA, const float* Bm,
-                                  const float* bscale, float* C, int mode,
-                                  const float* E1, float s, float sigma,
-                                  float* As, float* Bs, float* red,
-                                  float& out_max, float& out_sum) {
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;   // 2 rows x 4 cols per thread
-  float mx = 0.f, sq = 0.f;
-  for (int i0 = 0; i0 < n; i0 += TILE) {
-    for (int j0 = 0; j0 < n; j0 += TILE) {
-      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      for (int k0 = 0; k0 < kd; k0 += TK) {
-        for (int e = tid; e < TILE * TK; e += NT) {
-          int ii, kk;
-          if (transA) { kk = e / TILE; ii = e % TILE; }
-          else { ii = e / TK; kk = e % TK; }
-          const int i = i0 + ii, k = k0 + kk;
-          float a = 0.f;
-          if (i < n && k < kd)
-            a = transA ? A[(size_t)k * lda + i] : A[(size_t)i * lda + k];
-          As[kk * TILE + ii] = a;
-          const int kb = k0 + e / TILE, jb = j0 + e % TILE;
-          float bv = 0.f;
-          if (kb < kd && jb < n) {
-            bv = Bm[(size_t)kb * n + jb];
-            if (bscale) bv *= bscale[kb];
-          }
-          Bs[e] = bv;
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+static __device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+static __device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+enum { OP_K = 0, OP_RESID = 1, OP_UPDATE = 2 };
+
+// C = epi(a . b) over the n x n outputs, k < kd:
+//   OP_K:      a(i,k) = L[k n + i], b(k,j) = Rm[k n + j] * rho[k],
+//              C = (acc * s + E1) + (i == j ? sigma : 0)     (E1 = P)
+//   OP_RESID:  a(i,k) = L[i n + k], b(k,j) = Rm[k n + j],
+//              C = (i == j) - acc; returns max|C| (block-uniform)
+//   OP_UPDATE: the same operands, C = E1 + acc                (E1 = X)
+// stage: prologue_floats(n) of shared memory; clk (phase builds): B4's
+// clocks (FPH_*), or nullptr.
+template <int OP>
+static __device__ float product(int n, int kd, const float* L,
+                                const float* Rm, const float* rho, float s,
+                                const float* E1, float sigma, float* C,
+                                float* stage, float* red, long long* clk) {
+  const Geo g = geo(n);
+  const int tid = threadIdx.x, np = 8 * g.cells, mb = 8 * g.cr;
+  const int busy = g.cr * g.cells, p0 = (busy + 31) & ~31;
+  const int nslab = (kd + PK - 1) / PK;
+  const int buf = PK * (g.sa + np);
+  float mx = 0.f;
+  TSTART
+  if (tid >= p0) {
+    // producers: slab sl into buffer sl & 1, each thread every nprod-th
+    // element (stepping, no division per element)
+    const int pt = tid - p0, nprod = NT - p0;
+    for (int pass = 0; pass < g.passes; ++pass) {
+      const int r0 = pass * mb;
+      __syncthreads();   // the last product's outputs are written
+      for (int sl = 0; sl <= nslab; ++sl) {
+        if (sl > 0) {
+          cp_async_wait_all();
+          __syncthreads();   // slab sl - 1 landed; buffer sl & 1 is free
+          TMARK(clk, FPH_P_WAIT, tid == p0)
         }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < TK; ++kk) {
-          const float a0 = As[kk * TILE + tr * 2], a1 = As[kk * TILE + tr * 2 + 1];
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) {
-            const float bv = Bs[kk * TILE + tc * 4 + cc];
-            acc[0][cc] = fmaf(a0, bv, acc[0][cc]);
-            acc[1][cc] = fmaf(a1, bv, acc[1][cc]);
+        if (sl == nslab) break;
+        float* as = stage + (sl & 1) * buf;
+        float* bs = as + PK * g.sa;
+        const int k0 = sl * PK;
+        if (OP == OP_K) {   // rows of A, as they lie
+          int kk = pt / mb, i = pt % mb;
+          for (int e = pt; e < PK * mb; e += nprod) {
+            const int row = r0 + i, k = k0 + kk;
+            const bool ok = row < n && k < kd;
+            cp_async4(as + kk * g.sa + i, ok ? L + (size_t)k * n + row : L,
+                      ok);
+            for (i += nprod; i >= mb; i -= mb) ++kk;
+          }
+        } else {            // 16 k-values of a row, transposed
+          for (int e = pt; e < PK * mb; e += nprod) {
+            const int i = e / PK, kk = e % PK, row = r0 + i, k = k0 + kk;
+            const bool ok = row < n && k < kd;
+            cp_async4(as + kk * g.sa + i, ok ? L + (size_t)row * n + k : L,
+                      ok);
           }
         }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          const int i = i0 + tr * 2 + r, j = j0 + tc * 4 + cc;
-          if (i >= n || j >= n) continue;
-          const size_t ij = (size_t)i * n + j;
-          float val;
-          if (mode == EPI_K2) {
-            val = (acc[r][cc] * s + E1[ij]) + (i == j ? sigma : 0.f);
-          } else if (mode == EPI_RESID) {
-            val = (i == j ? 1.f : 0.f) - acc[r][cc];
-            mx = nanmax(mx, fabsf(val));
-            sq += val * val;
-          } else {
-            val = E1[ij] + acc[r][cc];
-          }
-          C[ij] = val;
+        int kk = pt / np, j = pt % np;
+        for (int e = pt; e < PK * np; e += nprod) {
+          const int k = k0 + kk;
+          const bool ok = j < n && k < kd;
+          cp_async4(bs + e, ok ? Rm + (size_t)k * n + j : Rm, ok);
+          for (j += nprod; j >= np; j -= np) ++kk;
         }
+        cp_async_commit();
+        TMARK(clk, FPH_P_ISSUE, tid == p0)
       }
     }
+  } else {
+    // consumers: the cells (threads of the last cell warp past busy idle)
+    const int ci = tid / g.cells, cj = tid % g.cells;
+    const bool act = tid < busy;
+    for (int pass = 0; pass < g.passes; ++pass) {
+      const int r0 = pass * mb;
+      __syncthreads();
+      float acc[8][8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[r][q] = 0.f;
+      for (int sl = 0; sl < nslab; ++sl) {
+        __syncthreads();   // slab sl landed
+        TMARK(clk, FPH_C_WAIT, tid == 0)
+        if (!act) continue;
+        const float* as = stage + (sl & 1) * buf + 4 * ci;
+        const float* bs = stage + (sl & 1) * buf + PK * g.sa + 4 * cj;
+#pragma unroll
+        for (int kk = 0; kk < PK; ++kk) {
+          const float4 a0 = ld4(as), a1 = ld4(as + 4 * g.cr);
+          float4 b0 = ld4(bs), b1 = ld4(bs + 4 * g.cells);
+          as += g.sa;
+          bs += np;
+          if (OP == OP_K) {
+            const int k = sl * PK + kk;
+            const float rk = k < kd ? rho[k] : 0.f;
+            b0 = make_float4(__fmul_rn(b0.x, rk), __fmul_rn(b0.y, rk),
+                             __fmul_rn(b0.z, rk), __fmul_rn(b0.w, rk));
+            b1 = make_float4(__fmul_rn(b1.x, rk), __fmul_rn(b1.y, rk),
+                             __fmul_rn(b1.z, rk), __fmul_rn(b1.w, rk));
+          }
+          const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          const float bv[8] = {b0.x, b0.y, b0.z, b0.w,
+                               b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int q = 0; q < 8; ++q)
+              acc[r][q] = fmaf(a[r], bv[q], acc[r][q]);
+        }
+        TMARK(clk, FPH_C_MATH, tid == 0)
+      }
+      if (!act) continue;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int i = r0 + (r < 4 ? 4 * ci + r : 4 * g.cr + 4 * ci + r - 4);
+        if (i >= n) continue;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int j = q < 4 ? 4 * cj + q : 4 * g.cells + 4 * cj + q - 4;
+          if (j >= n) continue;
+          const size_t ij = (size_t)i * n + j;
+          float v;
+          if (OP == OP_K) {
+            v = __fadd_rn(__fmaf_rn(acc[r][q], s, E1[ij]),
+                          i == j ? sigma : 0.f);
+          } else if (OP == OP_RESID) {
+            v = __fsub_rn(i == j ? 1.f : 0.f, acc[r][q]);
+            mx = nanmax(mx, fabsf(v));
+          } else {
+            v = __fadd_rn(E1[ij], acc[r][q]);
+          }
+          C[ij] = v;
+        }
+      }
+      TMARK(clk, FPH_C_EPI, tid == 0)
+    }
   }
-  __syncthreads();
-  if (mode == EPI_RESID) block_maxsum(mx, sq, red);
-  out_max = mx;
-  out_sum = sq;
+  if (OP == OP_RESID) {
+    float unused = 0.f;
+    block_maxsum(mx, unused, red);
+  } else {
+    __syncthreads();
+  }
+  return mx;
+}
+
+// sum of the squares of R (n x n, global) in the replaced GEMM's order:
+// each thread its 2 x 4 entries of every 64 x 64 tile, fused as
+// sq += v * v, then block_maxsum; the warm tests' Frobenius norms keep
+// their bits
+static __device__ float frob_sq(int n, const float* R, float* red) {
+  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+  float mx = 0.f, sq = 0.f;
+  for (int i0 = 0; i0 < n; i0 += 64)
+    for (int j0 = 0; j0 < n; j0 += 64)
+      for (int r = 0; r < 2; ++r)
+        for (int q = 0; q < 4; ++q) {
+          const int i = i0 + tr * 2 + r, j = j0 + tc * 4 + q;
+          if (i >= n || j >= n) continue;
+          const float v = R[(size_t)i * n + j];
+          sq = __fmaf_rn(v, v, sq);
+        }
+  block_maxsum(mx, sq, red);
+  return sq;
 }
 
 // K = (A' (rho A)) s + P + sigma I, then the Jacobi diagonal
 // dg = 1 / max(diag K, 1e-12); returns max(|I - K diag(dg)|_F, 1)
-static __device__ float build_k_jacobi(const QPParams& p, Ctx& c,
-                                       const float* P, const float* A,
-                                       float s, float* K, float* dg,
-                                       float* As, float* Bs) {
+static __device__ float k_jacobi(const QPParams& p, Ctx& c, const float* P,
+                                 const float* A, float s, float* K, float* dg,
+                                 float* stage, long long* clk) {
   const int n = p.n, m = p.m, tid = threadIdx.x;
-  float mx, sq;
-  block_gemm(n, m, A, n, true, A, c.rho, K, EPI_K2, P, s, p.sigma, As, Bs,
-             c.red, mx, sq);
+  product<OP_K>(n, m, A, A, c.rho, s, P, p.sigma, K, stage, c.red, clk);
   for (int j = tid; j < n; j += NT) dg[j] = 1.f / fmaxf(K[(size_t)j * n + j], 1e-12f);
   __syncthreads();
   float sumsq = 0.f, dummy = 0.f;
@@ -956,27 +1131,28 @@ static __device__ void write_jacobi(int n, const float* dg, float cjm,
 
 // Newton-Schulz passes X <- X + X (I - K X) from r = inf while r > tol and
 // it < max; the 128-pad block is the scalar xp. Returns the last residual
-// (and the iteration count in *iters when given); X / Y are swapped so
-// that *X holds the result.
-static __device__ float ns_run(const QPParams& p, int n, const float* K2,
+// and the iterations in *iters; X / Y are swapped so that X holds the
+// result. clk (phase builds): B4's clocks, or nullptr.
+static __device__ float ns_run(const QPParams& p, int n, const float* K,
                                float*& X, float*& Y, float* R, float& xp,
-                               float* As, float* Bs, float* red,
-                               int* iters = nullptr) {
+                               float* stage, float* red, int* iters,
+                               long long* clk) {
   float r = INFINITY;
   int it = 0;
-  float mx, sq;
+  PHASE_START
   while (r > p.ns_tol && it < p.ns_max_iters) {
-    block_gemm(n, n, K2, n, false, X, nullptr, R, EPI_RESID, nullptr, 0.f,
-               0.f, As, Bs, red, mx, sq);
+    float mx = product<OP_RESID>(n, n, K, X, nullptr, 1.f, nullptr, 0.f, R,
+                                 stage, red, clk);
+    CLK_MARK(clk, FPH_NS_RESID)
     if (p.n_pad) mx = nanmax(mx, fabsf(1.f - xp));
-    block_gemm(n, n, X, n, false, R, nullptr, Y, EPI_UPDATE, X, 0.f, 0.f, As,
-               Bs, red, sq, sq);
+    product<OP_UPDATE>(n, n, X, R, nullptr, 1.f, X, 0.f, Y, stage, red, clk);
+    CLK_MARK(clk, FPH_NS_UPDATE)
     float* t = X; X = Y; Y = t;
     r = mx;
     xp = xp + xp * (1.f - xp);
     ++it;
   }
-  if (iters) *iters = it;
+  *iters = it;
   return r;
 }
 

@@ -20,8 +20,9 @@ more iterations with a primal-only exit.
 The CUDA version (``csrc/cuda_qp.cu``) is two launches: the main loop, one
 CTA per scenario (per-scenario early exit), then the rescue, one CTA per
 scenario that returns at once unless its scenario needs the rescue; K2 and
-the Newton-Schulz products are a tiled float32 GEMM written in the kernel,
-with the matrices in a global-memory workspace.
+the Newton-Schulz products run on B4's product core (the whole n x n
+output in registers, 8 x 8 outputs a thread), with the matrices in a
+global-memory workspace.
 
 Both launches run the ADMM core in one of two layouts (:func:`smem_plan`,
 :func:`choose_layout`). **Resident**: each CTA copies its Kinv into shared
@@ -47,6 +48,7 @@ that scalar instead of the padded block.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -70,7 +72,7 @@ LAYOUTS = ("resident", "stream")
 SMEM_PER_SM = cuda_build.SMEM_PER_SM
 SMEM_PER_CTA = cuda_build.SMEM_PER_CTA
 SMEM_RESERVED = cuda_build.SMEM_RESERVED
-_NT, _TILE, _TK = 512, 64, 16
+_NT, _PK = 512, 16
 # the least nonzero share of A and P a plan's cap must hold: the main
 # path's FTOCPs hold 1.1%, the MPC stages' 2.0% (LTI)
 MIN_DENSITY = 0.02
@@ -89,18 +91,50 @@ def ctx_floats(n: int, m: int) -> int:
     return 7 * _r4(n) + 8 * _r4(m) + _NT + 4 * (_NT // 32)
 
 
+class Geo(NamedTuple):
+    """The Newton-Schulz product core at n (qp_common.cuh:geo; B4 and the
+    rescue): 8 x 8 output cells, one per thread."""
+    cells: int    # column cells, ceil(n / 8)
+    cr: int       # row cells of a pass
+    passes: int   # passes over the rows (one up to n = 168)
+    sa: int       # row stride of a staged slab of the left operand
+
+
+def geo(n: int) -> Geo:
+    cells = -(-n // 8)
+    per = (_NT - 32) // cells     # at least one producer warp
+    passes = -(-cells // per)
+    cr = -(-cells // passes)
+    return Geo(cells, cr, passes, 8 * cr + (36 - (8 * cr) % 32) % 32)
+
+
+def prologue_floats(n: int) -> int:
+    """Floats of the Newton-Schulz prologue's shared memory
+    (qp_common.cuh:prologue_floats): the product core's two slab buffers
+    (left operand, then right) and the Jacobi diagonal."""
+    g = geo(n)
+    return 2 * _PK * (g.sa + 8 * g.cells) + _r4(n)
+
+
+def slot_floats(n: int) -> int:
+    """Floats of the resident layout's Kinv slot (qp_common.cuh:slot_floats):
+    n^2 + 4, at least the prologue's buffers (the rescue and B4 stage their
+    products there)."""
+    return _r4(max(n * n + 4, prologue_floats(n)))
+
+
 def smem_plan(n: int, m: int, nnz_cap: int) -> Tuple[int, int]:
     """(bytes, CTAs per SM) of the resident layout for an n-variable,
     m-constraint QP whose A and P together hold at most ``nnz_cap``
     nonzeros (qp_common.cuh:resident_layout): an 80-byte header (the
     mbarrier and the list of A's long rows), the context, the Kinv slot
-    (n^2 + 4 floats, at least the rescue's GEMM tiles), then 14 bytes per
+    (:func:`slot_floats`), then 14 bytes per
     nonzero (pool and CSC values, pool rows and columns, CSC rows) and the
     int16 row / column pointers. CTAs per SM counts shared memory alone
     (0: it does not fit one CTA); the kernel's registers (over 64 per
     thread) hold the card to one CTA of 512 threads per SM
     (:func:`ctas_per_sm_on_card`)."""
-    slot = _r4(max(n * n + 4, 2 * _TILE * _TK + _r4(n)))
+    slot = slot_floats(n)
     sparse = 14 * nnz_cap + 2 * (m + 1 + 2 * (n + 1))
     nbytes = 80 + 4 * ctx_floats(n, m) + 4 * slot + _r16(sparse)
     if nbytes > SMEM_PER_CTA:
@@ -370,17 +404,27 @@ def pack_vectors(q, l, u, rho, D, E, c):
     return nvecs, vecs, vec.c_inv.contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _launchers(lib: ctypes.CDLL):
+    """The library's B1 entry points with their prototypes (bound once)."""
+    tail = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return dict(
+        main=cuda_build.bind(lib, "rl_admm",
+                             [_Params] + [ctypes.c_void_p] * 15 + tail),
+        rescue=cuda_build.bind(lib, "rl_admm_rescue",
+                               [_Params] + [ctypes.c_void_p] * 13 + tail),
+        ctas=cuda_build.bind(lib, "rl_admm_ctas_per_sm", [ctypes.c_int] * 4),
+        smem=cuda_build.bind(lib, "rl_admm_smem_bytes", [ctypes.c_int] * 5,
+                             ctypes.c_longlong))
+
+
 def launch_rescue(p: _Params, P, Kinv, A, nvecs, vecs, c_inv, kpad, x, z, y,
                   stats, flags, ws, layout: str) -> None:
     """The rescue launch over the lanes that ``flags[:, 2]`` marks, in the
     main launch's ``layout``; ``kpad``: B4's pad scalars of Kinv, or None
     (B1)."""
-    lib = cuda_build.library()
-    lib.rl_admm_rescue.argtypes = [_Params] + [ctypes.c_void_p] * 13 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.rl_admm_rescue.restype = ctypes.c_int
     Pt = cuda_build.ptr
-    err = lib.rl_admm_rescue(
+    err = _launchers(cuda_build.library())["rescue"](
         p, Pt(P), Pt(Kinv), Pt(A), Pt(nvecs), Pt(vecs), Pt(c_inv),
         ctypes.c_void_p(None if kpad is None else kpad.data_ptr()), Pt(x),
         Pt(z), Pt(y), Pt(stats), Pt(flags), Pt(ws),
@@ -402,21 +446,15 @@ def pick_layout(n: int, m: int, layout) -> Layout:
 def ctas_per_sm_on_card(n: int, m: int, layout: Layout) -> int:
     """CTAs per SM of B1's main kernel in ``layout`` by the card's own
     occupancy calculator (shared memory, registers, threads)."""
-    lib = cuda_build.library()
-    lib.rl_admm_ctas_per_sm.argtypes = [ctypes.c_int] * 4
-    lib.rl_admm_ctas_per_sm.restype = ctypes.c_int
-    return lib.rl_admm_ctas_per_sm(n, m, layout.nnz_cap,
-                                   int(layout.name == "resident"))
+    return _launchers(cuda_build.library())["ctas"](
+        n, m, layout.nnz_cap, int(layout.name == "resident"))
 
 
 def smem_bytes_on_card(n: int, m: int, layout: Layout) -> int:
     """The main launch's dynamic shared memory as the kernel source counts
     it (to hold :func:`smem_plan` against)."""
-    lib = cuda_build.library()
-    lib.rl_admm_smem_bytes.argtypes = [ctypes.c_int] * 5
-    lib.rl_admm_smem_bytes.restype = ctypes.c_longlong
-    return lib.rl_admm_smem_bytes(n, m, layout.nnz_cap,
-                                  int(layout.name == "resident"), 1)
+    return _launchers(cuda_build.library())["smem"](
+        n, m, layout.nnz_cap, int(layout.name == "resident"), 1)
 
 
 def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
@@ -464,16 +502,12 @@ def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
     flags = torch.empty((Bsz, 4), dtype=torch.int32, device=P.device)
     ws = torch.empty((Bsz if rescue_max_iter > 0 else 0, 4, n, n),
                      dtype=torch.float32, device=P.device)
-    lib = cuda_build.library()
-    lib.rl_admm.argtypes = [_Params] + [ctypes.c_void_p] * 15 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.rl_admm.restype = ctypes.c_int
     Pt = cuda_build.ptr
-    err = lib.rl_admm(p, Pt(P), Pt(Kinv), Pt(A), Pt(nvecs), Pt(vecs),
-                      Pt(c_inv), Pt(x0), Pt(z0), Pt(y0), Pt(x), Pt(z), Pt(y),
-                      Pt(stats), Pt(flags), Pt(streamed.tensor(P.device)),
-                      int(plan.name == "resident"), Bsz,
-                      cuda_build.stream_ptr())
+    err = _launchers(cuda_build.library())["main"](
+        p, Pt(P), Pt(Kinv), Pt(A), Pt(nvecs), Pt(vecs), Pt(c_inv), Pt(x0),
+        Pt(z0), Pt(y0), Pt(x), Pt(z), Pt(y), Pt(stats), Pt(flags),
+        Pt(streamed.tensor(P.device)), int(plan.name == "resident"), Bsz,
+        cuda_build.stream_ptr())
     launches.n += 1
     layout_launches[plan.name].n += 1
     cuda_build.check(err)

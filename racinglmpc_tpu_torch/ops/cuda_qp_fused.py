@@ -30,15 +30,21 @@ The CUDA version (``csrc/cuda_qp_fused.cu``) runs one CTA of 512 threads
 per scenario (each scenario exits its own Newton-Schulz loop and its own
 ADMM loop) with K, X, Y and R in a per-scenario global workspace
 (4 n^2 floats, allocated here), then B1's rescue launch
-(``cuda_qp.launch_rescue``) for the lanes that need it. Its ADMM phase
-runs on B1's core in the layout ``cuda_qp.choose_layout`` picks (resident:
-A and P compressed into shared memory, the refreshed inverse copied into
-the Kinv slot, over which the GEMM tiles lie until then); scenarios it
-streams are counted in :data:`streamed`.
+(``cuda_qp.launch_rescue``) for the lanes that need it. Its products hold
+the whole n x n output in registers (8 x 8 outputs a thread, ``cuda_qp.geo``)
+and stream the operands through double-buffered shared-memory slabs; each
+output keeps the first port's fmaf chain, so the bits are those of the
+64 x 64-tiled GEMM it replaced. Its ADMM phase runs on B1's core in the
+layout ``cuda_qp.choose_layout`` picks (resident: A and P compressed into
+shared memory, the refreshed inverse copied into the Kinv slot, over which
+the slab buffers lie until then); scenarios it streams are counted in
+:data:`streamed`. :func:`plan` is the launch's shared memory, CTAs per SM
+and waves.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -49,6 +55,36 @@ from racinglmpc_tpu_torch.utils.batched import lane_where as _w
 
 launches = cuda_build.LaunchCounter("fused_admm")
 streamed = cuda_build.ScenarioCounter("fused_admm_streamed")
+MAX_REGS = 128    # registers a thread may take at 512 threads, one CTA an SM
+
+
+class Plan(NamedTuple):
+    layout: str        # the ADMM phase's layout (cuda_qp.choose_layout)
+    nbytes: int        # dynamic shared memory of a CTA
+    threads: int       # threads holding an output cell in a product pass
+    passes: int        # passes of a product over the rows
+    ctas_per_sm: int   # by shared memory, threads and registers
+    waves: int         # of the batch over the card's SMs
+
+
+def plan(n: int, m: int, B: int = 256) -> Plan:
+    """The launch at (n, m) for a batch of B (the kernel source counts the
+    same bytes, ``rl_fused_smem_bytes``): B1's resident layout, whose Kinv
+    slot holds the product core's slabs and the Jacobi diagonal
+    (``cuda_qp.slot_floats``), or the context and those buffers where B1
+    streams. CTAs per SM count shared memory (with the runtime's
+    reservation), threads and registers: over 64 a thread (the 8 x 8 cells
+    and B1's core) hold the card to one CTA of 512 threads per SM."""
+    lay = cuda_qp.choose_layout(n, m)
+    nbytes = lay.nbytes if lay.name == "resident" else 4 * (
+        cuda_qp.ctx_floats(n, m) + cuda_qp.prologue_floats(n))
+    by_smem = (0 if nbytes > cuda_build.SMEM_PER_CTA else
+               cuda_build.SMEM_PER_SM // (nbytes + cuda_build.SMEM_RESERVED))
+    ctas = min(by_smem, 2048 // cuda_qp._NT,
+               cuda_build.REGS_PER_SM // (cuda_qp._NT * MAX_REGS))
+    g = cuda_qp.geo(n)
+    return Plan(lay.name, nbytes, g.cr * g.cells, g.passes, ctas,
+                -(-B // (ctas * cuda_build.N_SM)) if ctas else 0)
 
 
 class FusedResult(NamedTuple):
@@ -145,6 +181,36 @@ def admm_iterate_fused_plain(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0,
                        xp, warm, ns_it)
 
 
+@functools.lru_cache(maxsize=None)
+def _launchers(lib: ctypes.CDLL):
+    """The library's B4 entry points with their prototypes (bound once)."""
+    return dict(
+        main=cuda_build.bind(lib, "rl_admm_fused",
+                             [cuda_qp._Params] + [ctypes.c_void_p] * 21
+                             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+        ctas=cuda_build.bind(lib, "rl_fused_ctas_per_sm", [ctypes.c_int] * 4),
+        smem=cuda_build.bind(lib, "rl_fused_smem_bytes", [ctypes.c_int] * 4,
+                             ctypes.c_longlong))
+
+
+def smem_bytes_on_card(n: int, m: int) -> int:
+    """The launch's dynamic shared memory as the kernel source counts it,
+    in the layout ``cuda_qp.choose_layout`` picks (to hold :func:`plan`
+    against)."""
+    lay = cuda_qp.choose_layout(n, m)
+    return _launchers(cuda_build.library())["smem"](
+        n, m, lay.nnz_cap, int(lay.name == "resident"))
+
+
+def ctas_per_sm_on_card(n: int, m: int) -> int:
+    """CTAs per SM of the kernel by the card's own occupancy calculator
+    (shared memory, registers, threads), in the layout
+    ``cuda_qp.choose_layout`` picks."""
+    lay = cuda_qp.choose_layout(n, m)
+    return _launchers(cuda_build.library())["ctas"](
+        n, m, lay.nnz_cap, int(lay.name == "resident"))
+
+
 def admm_iterate_fused(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0, z0,
                        y0, *, sigma: float, alpha: float, eps_abs: float,
                        eps_rel: float, max_iter: int, check_every: int,
@@ -192,12 +258,8 @@ def admm_iterate_fused(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0, z0,
     kpad = torch.empty((Bsz,), dtype=torch.float32, device=dev)
     ns_info = torch.empty((Bsz, 2), dtype=torch.int32, device=dev)
     ws = torch.empty((Bsz, 4, n, n), dtype=torch.float32, device=dev)
-    lib = cuda_build.library()
-    lib.rl_admm_fused.argtypes = [cuda_qp._Params] + [ctypes.c_void_p] * 21 \
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.rl_admm_fused.restype = ctypes.c_int
     Pt = cuda_build.ptr
-    err = lib.rl_admm_fused(
+    err = _launchers(cuda_build.library())["main"](
         p, Pt(P), Pt(A), Pt(kinv0), Pt(warm_i), Pt(nvecs), Pt(vecs),
         Pt(c_inv), Pt(x0), Pt(z0), Pt(y0), Pt(x), Pt(z), Pt(y), Pt(stats),
         Pt(flags), Pt(kinv), Pt(ns_resid), Pt(kpad), Pt(ns_info), Pt(ws),

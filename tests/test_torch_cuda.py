@@ -13,13 +13,13 @@ import pytest
 import torch
 
 from racinglmpc_tpu_torch.controllers import lmpc as lmpc_mod
-from racinglmpc_tpu_torch.models import sysid
+from racinglmpc_tpu_torch.models import dynamics, sysid
 from racinglmpc_tpu_torch.models.track import make_track, track_table
 from racinglmpc_tpu_torch.ops import (cuda_qp, cuda_qp_fused, cuda_rollout,
                                       cuda_sysid)
 from racinglmpc_tpu_torch.ops import qp as qp_mod
 from racinglmpc_tpu_torch.runtime import experiment as exp
-from racinglmpc_tpu_torch.runtime import main_path, stage_path
+from racinglmpc_tpu_torch.runtime import loop, main_path, stage_path
 from racinglmpc_tpu_torch.utils.config import SolverConfig, VehicleParams
 
 torch.set_num_threads(1)
@@ -161,6 +161,39 @@ def test_sysid_plan_matches_kernel_source(setup):
                                               pl.nbuf) == pl.ctas_per_sm
 
 
+def test_sysid_outside_the_kernel_limits_takes_the_plain_path(setup):
+    """knn_max = MAX_KNN + 1 with use_pallas_sysid: the wrapper would
+    raise, so the controller's step takes the plain sys-ID (no B2
+    launch), as the reference takes its XLA path."""
+    cfg, trk, st, x0 = setup
+    lcfg = dataclasses.replace(cfg.lmpc, knn_max=cuda_sysid.MAX_KNN + 1)
+    assert lcfg.use_pallas_sysid
+    ctrl = lmpc_mod.make_lmpc(lcfg, trk, cfg.solver, 0.1)
+    assert not ctrl.use_kernel_sysid
+    cuda_sysid.launches.reset()
+    _, u = ctrl.step(st, x0)
+    torch.cuda.synchronize()
+    assert cuda_sysid.launches.n == 0
+    assert bool(torch.isfinite(u).all())
+
+
+def test_rollout_with_batched_vehicle_params(setup):
+    """use_pallas_rollout with a (B,) vehicle parameter: the plain plant
+    step runs (no B3 launch), equal to dynamics.plant_step."""
+    cfg, trk, _, x0 = setup
+    vp = VehicleParams(m=torch.linspace(1.9, 2.1, B, device="cuda"))
+    sim = dataclasses.replace(cfg.sim, use_pallas_rollout=True, noise=False)
+    plant = dynamics.PlantState(x=x0, x_glob=x0.clone())
+    u = torch.full((B, 2), 0.1, device="cuda")
+    cuda_rollout.launches.reset()
+    out = loop.plant_step(plant, u, vp, trk, sim, None, track_table(trk))
+    torch.cuda.synchronize()
+    assert cuda_rollout.launches.n == 0
+    ref = dynamics.plant_step(plant, u, vp, trk, sim)
+    assert torch.equal(out.x, ref.x) and torch.equal(out.x_glob, ref.x_glob)
+    assert bool(torch.isfinite(out.x).all())
+
+
 def test_admm_matches_plain(setup):
     cfg, trk, st, x0 = setup
     ctrl = lmpc_mod.make_lmpc(cfg.lmpc, trk, cfg.solver, 0.1)
@@ -184,6 +217,80 @@ def test_admm_matches_plain(setup):
 
 FUSED_NAMES = ("P", "A", "kinv0", "warm_ok", "q", "l", "u", "rho", "D", "E",
                "c", "x0", "z0", "y0")
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _kinv_residual_ok(args, k, kw):
+    """max|I - K Kinv| < 50 ns_tol for the kernel's refreshed inverse
+    (chip_smoke.py phase 6's gate)."""
+    K = cuda_qp_fused.build_k(args[0], args[1], args[7], kw["sigma"])
+    eye = torch.eye(K.shape[-1], device=K.device)
+    assert float((eye - K @ k.kinv).abs().amax()) < 50 * kw["ns_tol"]
+
+
+def _fused_vs_plain(qp, cfg, warm=None, fac=None):
+    fixed = dataclasses.replace(cfg, eps_abs=0.0, eps_rel=0.0, max_iter=16,
+                                check_every=16, rescue_max_iter=0)
+    outs = []
+    for scfg in (fixed, cfg):
+        kw = qp_mod.fused_inputs(qp, scfg, warm, fac)
+        args = [kw.pop(n) for n in FUSED_NAMES]
+        k = cuda_qp_fused.admm_iterate_fused(*args, **kw)
+        p = cuda_qp_fused.admm_iterate_fused_plain(*args, **kw)
+        if scfg is fixed:
+            assert float((k.x - p.x).abs().max()) < 3e-2
+        else:
+            assert int(k.solved.sum()) >= 0.9 * k.x.shape[0]
+        assert bool((k.warm == p.warm).all())
+        assert float(k.ns_resid.max()) < kw["ns_tol"]
+        _kinv_residual_ok(args, k, kw)
+        assert _same_bits(k, cuda_qp_fused.admm_iterate_fused(*args, **kw))
+        outs.append(k)
+    return outs
+
+
+def test_fused_admm_small_n_cold_and_warm():
+    """B4 at n = 30 (the product core's slabs, not n^2, size the Kinv
+    slot): cold from Jacobi, then warm from the cold solve's cache; against
+    the plain version, bits equal over two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from racinglmpc_tpu_torch.runtime.admm_bench import random_qps
+
+    cfg = SolverConfig(max_iter=200, polish=False, adaptive_rho=False,
+                       eps_abs=3e-4, eps_rel=3e-4, use_pallas=True,
+                       pallas_fused_ns=True)
+    qps = random_qps(B)
+    assert cuda_qp.slot_floats(30) == cuda_qp.prologue_floats(30)
+    cold = _fused_vs_plain(qps, cfg)[1]
+    assert not bool(cold.warm.any())
+    fac = qp_mod.solve(qps, cfg).fac
+    warm = _fused_vs_plain(qps, cfg, fac=fac)[1]
+    assert bool(warm.warm.all())
+    assert int(warm.ns_iters.max()) < int(cold.ns_iters.min())
+
+
+def test_fused_admm_main_path_ftocps(setup):
+    """B4 on the main path's LMPC FTOCPs (n = 200: two passes of the
+    product rows), against the plain version."""
+    cfg, trk, st, x0 = setup
+    ctrl = lmpc_mod.make_lmpc(cfg.lmpc, trk, cfg.solver, 0.1)
+    qp = ctrl.build_qp(st, x0)[0]
+    assert qp.q.shape[1] == 200 and cuda_qp_fused.plan(200, 257).passes == 2
+    _fused_vs_plain(qp, dataclasses.replace(cfg.solver, pallas_fused_ns=True),
+                    (st.warm_x, st.warm_y), st.fac)
+
+
+def test_fused_plan_matches_kernel_source_and_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    for n, m in ((146, 202), (200, 257), (30, 26)):
+        pl = cuda_qp_fused.plan(n, m)
+        assert cuda_qp_fused.smem_bytes_on_card(n, m) == pl.nbytes
+        assert cuda_qp_fused.ctas_per_sm_on_card(n, m) == pl.ctas_per_sm
 
 
 @pytest.fixture(scope="module")
@@ -220,6 +327,8 @@ def test_fused_admm_matches_plain(stages, stage):
         # LTI's constant K contracts the warm start; LTV's drift does not
         assert bool(k.warm.float().mean() > 0.5) == (stage == "lti")
         assert float(k.ns_resid.max()) < kw["ns_tol"]
+        _kinv_residual_ok(args, k, kw)
+        assert _same_bits(k, cuda_qp_fused.admm_iterate_fused(*args, **kw))
         if scfg is not fixed:
             assert int(k.solved.sum()) >= 0.9 * B
     with pytest.raises(ValueError, match="contiguous"):

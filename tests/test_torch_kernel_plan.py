@@ -1,11 +1,15 @@
-"""Host-side plans and launch arguments of kernels B2 and B3 (CPU only).
+"""Host-side plans and launch arguments of kernels B2, B3 and B4 (CPU
+only).
 
 ``cuda_sysid.plan`` must fit the main path's store (T = 512) and the
 default ``model_pts`` (T = 1024) two CTAs to an SM, so a batch of 256 runs
 in one wave; the launch arguments are built once per (vehicle, table,
 config) and a different vehicle or table gives new ones. The SASS and
 ``-Xptxas -v`` readers of ``runtime/kernel_bench.py`` are checked on
-fixed text.
+fixed text. ``cuda_qp_fused.plan`` (B4) must keep one CTA of 512 threads
+per SM within the card's shared memory, with the product core's slab
+buffers in B1's Kinv slot, and the core's 8 x 8 output cells must cover
+every output of a product exactly once.
 """
 import dataclasses
 
@@ -14,7 +18,8 @@ import torch
 
 from racinglmpc_tpu_torch.models.track import TrackTable, make_track
 from racinglmpc_tpu_torch.models.track import track_table
-from racinglmpc_tpu_torch.ops import cuda_build, cuda_rollout, cuda_sysid
+from racinglmpc_tpu_torch.ops import (cuda_build, cuda_qp, cuda_qp_fused,
+                                      cuda_rollout, cuda_sysid)
 from racinglmpc_tpu_torch.runtime import kernel_bench
 from racinglmpc_tpu_torch.utils.config import (LMPCConfig, SimConfig,
                                                VehicleParams)
@@ -99,6 +104,59 @@ def test_sysid_params_cached_per_shape_config_table(table):
     q = cuda_sysid.launch_params(4, 512, 14, 2, cfg, 0.1, other)
     assert q is not p and q.L == pytest.approx(table.total_len + 1.0)
     assert cuda_sysid.launch_params(4, 1024, 14, 2, cfg, 0.1, table).T == 1024
+
+
+# (n, m): the MPC stages' FTOCP (LTI and LTV), the main path's LMPC FTOCP,
+# the random QPs of tests/test_torch_fused_qp.py
+FUSED_SHAPES = [(146, 202, 361, 1), (200, 257, 325, 2), (30, 26, 16, 1)]
+
+
+@pytest.mark.parametrize("n, m, threads, passes", FUSED_SHAPES)
+def test_fused_plan_one_cta_per_sm(n, m, threads, passes):
+    pl = cuda_qp_fused.plan(n, m, 256)
+    lay = cuda_qp.choose_layout(n, m)
+    assert pl.layout == lay.name == "resident" and pl.nbytes == lay.nbytes
+    assert pl.nbytes <= cuda_build.SMEM_PER_CTA
+    assert pl.ctas_per_sm == 1 and pl.waves == 2
+    assert cuda_qp_fused.plan(n, m, 132).waves == 1
+    assert (pl.threads, pl.passes) == (threads, passes)
+    # the Kinv slot holds the product core's slabs and the diagonal (at
+    # small n they, not n^2, size it)
+    slot = cuda_qp.slot_floats(n)
+    assert slot >= cuda_qp.prologue_floats(n) and slot >= n * n + 4
+    assert (slot == cuda_qp._r4(n * n + 4)) == (n >= 146)
+
+
+def test_fused_plan_registers_hold_one_cta():
+    # 512 threads of up to 128 registers take the whole register file
+    assert cuda_qp_fused.MAX_REGS * 512 == cuda_build.REGS_PER_SM
+    assert cuda_qp.choose_layout(146, 202).ctas_per_sm == 2   # by smem
+    assert cuda_qp_fused.plan(146, 202, 256).ctas_per_sm == 1
+
+
+@pytest.mark.parametrize("n", [1, 8, 30, 146, 168, 169, 200, 257])
+def test_fused_product_cells_cover_each_output_once(n):
+    """The product core's cell geometry (qp_common.cuh:product): thread t of
+    a pass holds cell (t / cells, t % cells), rows 4 ci + r and 4 cr + 4 ci
+    + r, columns 4 cj + q and 4 cells + 4 cj + q (r, q < 4); the warps past
+    the cells' (at least one) stage the operands."""
+    g = cuda_qp.geo(n)
+    assert -(-g.cr * g.cells // 32) <= 15 and 8 * g.cells >= n
+    assert (g.passes == 1) == (n <= 168)
+    assert g.sa % 32 == 4 and g.sa >= 8 * g.cr
+    seen = torch.zeros((n, n), dtype=torch.int32)
+    for pas in range(g.passes):
+        for t in range(g.cr * g.cells):
+            ci, cj = divmod(t, g.cells)
+            rows = [pas * 8 * g.cr + 4 * ci + r for r in range(4)] + [
+                pas * 8 * g.cr + 4 * g.cr + 4 * ci + r for r in range(4)]
+            cols = [4 * cj + q for q in range(4)] + [
+                4 * g.cells + 4 * cj + q for q in range(4)]
+            for i in rows:
+                for j in cols:
+                    if i < n and j < n:
+                        seen[i, j] += 1
+    assert bool((seen == 1).all())
 
 
 SASS = """
