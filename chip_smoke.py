@@ -295,7 +295,7 @@ def fused_phase(torch, qp_mod, cuda_qp_fused, runs, trk, launches):
             *args, **kw))
         dms = kernel_bench.device_ms(
             lambda: cuda_qp_fused.admm_iterate_fused(*args, **kw),
-            ("admm_fused", "admm_rescue"))
+            ("admm_fused", "admm_main", "admm_rescue"))
         pms = time_ms(torch, lambda: cuda_qp_fused.admm_iterate_fused_plain(
             *args, **kw))
         # K = A'(rho A) + P + sigma I from A's nonzeros (2 nnz(row)^2 per

@@ -209,10 +209,11 @@ admm_rescue(const QPParams p, const float* P_, const float* Kinv_,
 // dynamic shared memory of the main launch (rescue: main = 0) in a layout
 extern "C" long long rl_admm_smem_bytes(int n, int m, int nnz_cap,
                                         int layout, int main) {
+  if (!main) return (long long)prologue_smem(n, m, nnz_cap,
+                                             layout == LAYOUT_RESIDENT);
   if (layout == LAYOUT_RESIDENT)
     return (long long)resident_layout(n, m, nnz_cap).total;
-  return (long long)((ctx_floats(n, m) + (main ? 0 : prologue_floats(n))) *
-                     sizeof(float));
+  return (long long)(ctx_floats(n, m) * sizeof(float));
 }
 
 static const void* main_kernel(int layout) {

@@ -25,30 +25,30 @@
 // nnz(row)^2) and 4 n^3 per Newton-Schulz iteration (~20 on a cold LTV
 // build: ~0.25 GFLOP per scenario at n = 146), full float32 FMAs on the
 // CUDA cores (TF32 and split-float32 tensor-core products are ruled out:
-// every product must keep its fmaf chain, see below). One CTA of 512
-// threads per scenario (each scenario exits its own Newton-Schulz loop and
-// its own ADMM loop, the point of the fused kernel); K, X, Y and R live in
-// a per-scenario global workspace (4 n^2 floats: K and X are 85-160 KB
-// each at n = 146-200 and do not fit in shared memory together). Each
-// product (qp_common.cuh:product, shared with B1's rescue) holds the whole
-// n x n output in registers,
-// 8 x 8 outputs a thread read as float4 fragments, and streams the two
-// operands once through shared memory in 16-deep slabs by cp.async, double
-// buffered with one barrier a slab, issued by the warps that hold no
-// output cells, so the loads hide behind the FMAs; its slab buffers
-// overlay the Kinv slot of B1's resident layout. The 8 x 8
-// cells need over 64 registers a thread, as B1's core does, so one CTA
-// fits an SM and a batch of 256 runs in two waves (cuda_qp_fused.py:plan).
-// Every output is one fmaf chain over k in order, as in the first port's
-// 64 x 64-tiled GEMM (qp_common.cuh:block_gemm, which B1's rescue still
-// runs), and the epilogues are its operations pinned with __fadd_rn /
-// __fsub_rn: the refreshed inverse, the Newton-Schulz counts and the warm
-// decisions keep their bits. The ADMM phase then runs on B1's resident
-// core: A and P compressed into shared memory at the start (one read), the
-// refreshed X copied into the slot, and the loop reads only shared memory,
-// with the same bits as the streaming core; shapes that do not fit
-// (ops/cuda_qp.py:smem_plan) and scenarios whose nonzeros overflow the cap
-// run the streaming core, flagged and counted.
+// every product must keep its fmaf chain, see below). Two launches, one
+// CTA of 512 threads per scenario in each, so that each scenario exits its
+// own Newton-Schulz loop and its own ADMM loop:
+//   - the prologue (admm_fused_prologue below): K, X, Y and R in a
+//     per-scenario global workspace (4 n^2 floats: K and X are 85-160 KB
+//     each at n = 146-200 and do not fit in shared memory together). Each
+//     product (qp_common.cuh:product, shared with B1's rescue) holds the
+//     whole n x n output in registers, 8 x 8 outputs a thread read as
+//     float4 fragments, and streams the two operands once through shared
+//     memory in 16-deep slabs by cp.async, double buffered with one barrier
+//     a slab, issued by the warps that hold no output cells, so the loads
+//     hide behind the FMAs. The 8 x 8 cells need over 64 registers a
+//     thread, so one CTA fits an SM and a batch of 256 runs in two waves
+//     (cuda_qp_fused.py:plan). Every output is one fmaf chain over k in
+//     order, as in the first port's 64 x 64-tiled GEMM, and the epilogues
+//     are its operations pinned with __fmaf_rn / __fadd_rn / __fsub_rn:
+//     the refreshed inverse, the Newton-Schulz counts and the warm
+//     decisions keep their bits;
+//   - the ADMM loop: B1's main kernel on the refreshed inverse
+//     (cuda_qp.cu:rl_admm), in the layout ops/cuda_qp.py:choose_layout
+//     picks, with B4's streamed-scenario counter. Its own kernel: the ADMM
+//     core holds every register at 512 threads, and the prologue's state
+//     beside it spilled. Its loop is the one the fused kernel ran on the
+//     same inverse, so the bits are too.
 #include "qp_common.cuh"
 
 #ifdef QP_PHASES
@@ -58,50 +58,41 @@ static __device__ long long fused_phase[FPH_N];   // qp_common.cuh: FPH_*
 #define FUSED_CLK static_cast<long long*>(nullptr)
 #endif
 
-// One CTA per SM by registers (the 8 x 8 cells and B1's core need over 64
-// a thread at 512 threads): the batch runs in waves of 132.
-template <bool RES>
+// the prologue's dynamic shared memory: the context (rho and the
+// reductions' scratch) and the product core's slabs and diagonal
+static size_t fused_smem(int n, int m) {
+  return prologue_smem(n, m, 0, false);
+}
+
+// One CTA per SM by registers (the 8 x 8 cells need over 64 a thread at
+// 512 threads): the batch runs in waves of 132.
 __global__ void __launch_bounds__(NT, 1)
-admm_fused(const QPParams p, const float* P_, const float* A_,
-           const float* kinv0_, const int* warm_ok, const float* nvecs,
-           const float* vecs, const float* cinv, const float* x0,
-           const float* z0, const float* y0, float* xo, float* zo, float* yo,
-           float* stats, int* flags, float* kinv_out, float* ns_out,
-           float* kpad_out, int* ns_info, float* ws, int* streamed) {
+admm_fused_prologue(const QPParams p, const float* P_, const float* A_,
+                    const float* kinv0_, const int* warm_ok,
+                    const float* vecs, float* kinv_out, float* ns_out,
+                    float* kpad_out, int* ns_info, float* ws) {
   const int b = blockIdx.x, n = p.n, m = p.m, tid = threadIdx.x;
-  unsigned char* smb = dyn_smem();
   const size_t nn = (size_t)n * n;
   const float* P = P_ + (size_t)b * nn;
   const float* A = A_ + (size_t)b * m * n;
-  float *ctxp, *slot;
-  Sparse s;
-  bool fits = false;
-  if (RES) {
-    const Resident L = resident_layout(n, m, p.nnz_cap);
-    ctxp = reinterpret_cast<float*>(smb + L.ctx);
-    slot = reinterpret_cast<float*>(smb + L.slot);
-    s = carve_sparse(smb, L);
-    fits = build_sparse(p, A, P, s, reinterpret_cast<int*>(ctxp));
-    __syncthreads();
-  } else {
-    ctxp = reinterpret_cast<float*>(smb);
-    slot = ctxp + ctx_floats(n, m);
-  }
+  float* ctxp = reinterpret_cast<float*>(dyn_smem());
   Ctx c = carve(ctxp, n, m);
-  float* stage = slot;   // the product core's slabs, then the diagonal
+  float* stage = ctxp + ctx_floats(n, m);   // the slabs, then the diagonal
   float* dg = stage + 2 * PK * (geo(n).sa + 8 * geo(n).cells);
   float* K = ws + (size_t)b * 4 * nn;
   float* X = K + nn;
   float* Y = X + nn;
   float* R = Y + nn;
-  load_state(p, c, b, nvecs, vecs, x0, z0, y0);
+  const float* rho = vecs + (size_t)b * 5 * m + 2 * m;   // pack_vectors
+  for (int i = tid; i < m; i += NT) c.rho[i] = rho[i];
+  __syncthreads();
   long long* clk = FUSED_CLK;
-  PHASE_START
+  TSTART
 
   // K = A'(rho A) + P + sigma I and its Jacobi init
   const float cjm = k_jacobi(p, c, P, A, 1.f, K, dg, stage, clk);
   const float xj_pad = 1.f / cjm;
-  CLK_MARK(clk, FPH_KBUILD)
+  TMARK(clk, FPH_KBUILD, tid == 0)
 
   bool use_warm = false;
   if (warm_ok[b]) {
@@ -114,7 +105,7 @@ admm_fused(const QPParams p, const float* P_, const float* A_,
     use_warm = isfinite(r0f) && r0f < 0.9f;
   }
   if (!use_warm) write_jacobi(n, dg, cjm, X);
-  CLK_MARK(clk, FPH_WARM)
+  TMARK(clk, FPH_WARM, tid == 0)
   float xp = use_warm ? 1.f : xj_pad;
   int it1 = 0, it2 = 0;
   const float r1 = ns_run(p, n, K, X, Y, R, xp, stage, c.red, &it1, clk);
@@ -124,7 +115,7 @@ admm_fused(const QPParams p, const float* P_, const float* A_,
   }
   const float ns_resid =
       ns_run(p, n, K, X, Y, R, xp, stage, c.red, &it2, clk);
-  CLK_MARK(clk, FPH_NS)
+  TMARK(clk, FPH_NS, tid == 0)
 
   float* ko = kinv_out + (size_t)b * nn;
   for (size_t e = tid; e < nn; e += NT) ko[e] = X[e];
@@ -134,42 +125,18 @@ admm_fused(const QPParams p, const float* P_, const float* A_,
     ns_info[b * 2 + 0] = use_warm ? 1 : 0;
     ns_info[b * 2 + 1] = it1 + it2;
   }
-  if (RES) {   // X into the slot (the product buffers are done with)
-    for (size_t e = tid; e < nn; e += NT) slot[e] = X[e];
-    __syncthreads();
-    CLK_MARK(clk, FPH_COPY)
-    if (fits)
-      admm_loop(p, c, b, SparseOps(s, slot, n, m), cinv[b], false, xo, zo,
-                yo, stats, flags, streamed);
-    else
-      admm_loop(p, c, b, DenseOps{P, A, slot, n, m}, cinv[b], true, xo, zo,
-                yo, stats, flags, streamed);
-  } else {
-    admm_loop(p, c, b, DenseOps{P, A, X, n, m}, cinv[b], true, xo, zo, yo,
-              stats, flags, streamed);
-  }
-  CLK_MARK(clk, FPH_ADMM)
 }
 
-// dynamic shared memory of a launch in a layout
-extern "C" long long rl_fused_smem_bytes(int n, int m, int nnz_cap,
-                                         int layout) {
-  return (long long)(layout == LAYOUT_RESIDENT
-                         ? resident_layout(n, m, nnz_cap).total
-                         : 4 * (ctx_floats(n, m) + prologue_floats(n)));
+// dynamic shared memory of the prologue launch
+extern "C" long long rl_fused_smem_bytes(int n, int m) {
+  return (long long)fused_smem(n, m);
 }
 
-static const void* fused_kernel(int layout) {
-  return layout == LAYOUT_RESIDENT
-             ? reinterpret_cast<const void*>(admm_fused<true>)
-             : reinterpret_cast<const void*>(admm_fused<false>);
-}
-
-// CTAs per SM the card runs of the kernel in a layout (the occupancy
+// CTAs per SM the card runs of the prologue kernel (the occupancy
 // calculator: shared memory, registers and threads); < 0 on an error
-extern "C" int rl_fused_ctas_per_sm(int n, int m, int nnz_cap, int layout) {
-  const size_t smem = rl_fused_smem_bytes(n, m, nnz_cap, layout);
-  const void* fn = fused_kernel(layout);
+extern "C" int rl_fused_ctas_per_sm(int n, int m) {
+  const size_t smem = fused_smem(n, m);
+  const void* fn = reinterpret_cast<const void*>(admm_fused_prologue);
   if (set_smem(fn, smem)) return -1;
   int ctas = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, NT, smem) !=
@@ -178,6 +145,15 @@ extern "C" int rl_fused_ctas_per_sm(int n, int m, int nnz_cap, int layout) {
   return ctas;
 }
 
+// B1's main launch (cuda_qp.cu)
+extern "C" int rl_admm(QPParams p, const float* P, const float* Kinv,
+                       const float* A, const float* nvecs, const float* vecs,
+                       const float* cinv, const float* x0, const float* z0,
+                       const float* y0, float* xo, float* zo, float* yo,
+                       float* stats, int* flags, int* streamed, int layout,
+                       int B, void* stream);
+
+// the prologue, then B1's ADMM loop on the refreshed inverse (kinv_out)
 extern "C" int rl_admm_fused(QPParams p, const float* P, const float* A,
                              const float* kinv0, const int* warm_ok,
                              const float* nvecs, const float* vecs,
@@ -188,19 +164,17 @@ extern "C" int rl_admm_fused(QPParams p, const float* P, const float* A,
                              int* ns_info, float* ws, int* streamed,
                              int layout, int B, void* stream) {
   if (B <= 0) return 0;
-  const size_t smem = rl_fused_smem_bytes(p.n, p.m, p.nnz_cap, layout);
-  int e = set_smem(fused_kernel(layout), smem);
+  const size_t smem = fused_smem(p.n, p.m);
+  int e = set_smem(reinterpret_cast<const void*>(admm_fused_prologue), smem);
   if (e) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (layout == LAYOUT_RESIDENT)
-    admm_fused<true><<<B, NT, smem, st>>>(
-        p, P, A, kinv0, warm_ok, nvecs, vecs, cinv, x0, z0, y0, xo, zo, yo,
-        stats, flags, kinv_out, ns_out, kpad_out, ns_info, ws, streamed);
-  else
-    admm_fused<false><<<B, NT, smem, st>>>(
-        p, P, A, kinv0, warm_ok, nvecs, vecs, cinv, x0, z0, y0, xo, zo, yo,
-        stats, flags, kinv_out, ns_out, kpad_out, ns_info, ws, streamed);
-  return static_cast<int>(cudaGetLastError());
+  admm_fused_prologue<<<B, NT, smem, st>>>(p, P, A, kinv0, warm_ok, vecs,
+                                           kinv_out, ns_out, kpad_out,
+                                           ns_info, ws);
+  e = static_cast<int>(cudaGetLastError());
+  if (e) return e;
+  return rl_admm(p, P, kinv_out, A, nvecs, vecs, cinv, x0, z0, y0, xo, zo,
+                 yo, stats, flags, streamed, layout, B, stream);
 }
 
 #ifdef QP_PHASES

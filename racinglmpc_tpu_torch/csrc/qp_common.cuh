@@ -42,13 +42,12 @@ enum { PH_VK, PH_AV, PH_VA, PH_VP_VA, PH_AV_UPDATE, PH_CHECK, PH_PROLOGUE,
 // --phases), into the array a kernel hands to the product core: SM cycles
 // of thread 0 of scenario 0 in the K build (with the Jacobi init), the
 // warm test, the residual and the update products of both Newton-Schulz
-// passes, the passes as a whole, the inverse's copies and the ADMM loop;
-// then, summed over every product, thread 0's (a cell thread's) cycles
-// waiting at the slab barriers, multiplying, and in the epilogues, and the
-// first producer's cycles issuing slabs and waiting for them
-enum { FPH_KBUILD, FPH_WARM, FPH_NS_RESID, FPH_NS_UPDATE, FPH_NS, FPH_COPY,
-       FPH_ADMM, FPH_C_WAIT, FPH_C_MATH, FPH_C_EPI, FPH_P_ISSUE, FPH_P_WAIT,
-       FPH_N };
+// passes and the passes as a whole; then, summed over every product,
+// thread 0's (a cell thread's) cycles waiting at the slab barriers,
+// multiplying, and in the epilogues, and the first producer's cycles
+// issuing slabs and waiting for them
+enum { FPH_KBUILD, FPH_WARM, FPH_NS_RESID, FPH_NS_UPDATE, FPH_NS,
+       FPH_C_WAIT, FPH_C_MATH, FPH_C_EPI, FPH_P_ISSUE, FPH_P_WAIT, FPH_N };
 #ifdef QP_PHASES
 static __device__ long long qp_phase[PH_N];
 #define PHASE_START long long qp_t0_ = clock64();
@@ -58,16 +57,9 @@ static __device__ long long qp_phase[PH_N];
     qp_phase[k] += t_ - qp_t0_;                       \
     qp_t0_ = t_;                                      \
   }
-// the same into clk[k] (B4's prologue clocks, cuda_qp_fused.cu), where clk
-// is given
-#define CLK_MARK(clk, k)                                       \
-  if ((clk) && threadIdx.x == 0 && blockIdx.x == 0) {          \
-    const long long t_ = clock64();                            \
-    (clk)[k] += t_ - qp_t0_;                                   \
-    qp_t0_ = t_;                                               \
-  }
-// thread `who` of scenario 0 adds the cycles since its last TMARK (or
-// TSTART) to clk[k]
+// B4's prologue clocks (cuda_qp_fused.cu): thread `who` of scenario 0
+// adds the cycles since its last TMARK (or TSTART) to clk[k], where clk is
+// given
 #define TSTART long long tm_ = clock64();
 #define TMARK(clk, k, who)                                     \
   if ((clk) && (who) && blockIdx.x == 0) {                     \
@@ -78,7 +70,6 @@ static __device__ long long qp_phase[PH_N];
 #else
 #define PHASE_START
 #define PHASE(k)
-#define CLK_MARK(clk, k)
 #define TSTART
 #define TMARK(clk, k, who)
 #endif
@@ -166,8 +157,8 @@ static __host__ __device__ inline size_t prologue_floats(int n) {
 //    A row ptr | A col ptr | P col ptr]
 // The Kinv slot holds n*n floats plus 4 of slack (the copy keeps the
 // source's alignment mod 16 bytes), and at least the prologue's buffers:
-// in the rescue and in B4 it holds the product core's slabs and the
-// Jacobi diagonal until the inverse is copied in. The
+// in the rescue it holds the product core's slabs and the Jacobi diagonal
+// until the inverse is copied in. The
 // pool takes the nonzeros of A then P in row-major order (it is A's CSR);
 // the CSC arrays hold A's columns then P's. ops/cuda_qp.py:smem_plan
 // mirrors this count.
@@ -196,6 +187,15 @@ static __host__ __device__ inline Resident resident_layout(int n, int m,
   L.pcp = L.acp + (size_t)2 * (n + 1);
   L.total = L.pv + r16((size_t)14 * cap + 2 * (m + 1 + 2 * (n + 1)));
   return L;
+}
+
+// dynamic shared memory of a launch that runs the Newton-Schulz prologue
+// (B1's rescue; B4's prologue, res = false): the resident layout, whose
+// Kinv slot holds the prologue's buffers, or the context and the buffers
+static __host__ __device__ inline size_t prologue_smem(int n, int m, int cap,
+                                                       bool res) {
+  return res ? resident_layout(n, m, cap).total
+             : 4 * (ctx_floats(n, m) + prologue_floats(n));
 }
 
 struct Sparse {
@@ -1020,7 +1020,9 @@ static __device__ float product(int n, int kd, const float* L,
         if (!act) continue;
         const float* as = stage + (sl & 1) * buf + 4 * ci;
         const float* bs = stage + (sl & 1) * buf + PK * g.sa + 4 * cj;
-#pragma unroll
+        // not unrolled: an unrolled slab's addresses and fragments spill
+        // the 64 accumulators' neighbours (-Xptxas -v), for no gain
+#pragma unroll 1
         for (int kk = 0; kk < PK; ++kk) {
           const float4 a0 = ld4(as), a1 = ld4(as + 4 * g.cr);
           float4 b0 = ld4(bs), b1 = ld4(bs + 4 * g.cells);
@@ -1139,14 +1141,14 @@ static __device__ float ns_run(const QPParams& p, int n, const float* K,
                                long long* clk) {
   float r = INFINITY;
   int it = 0;
-  PHASE_START
+  TSTART
   while (r > p.ns_tol && it < p.ns_max_iters) {
     float mx = product<OP_RESID>(n, n, K, X, nullptr, 1.f, nullptr, 0.f, R,
                                  stage, red, clk);
-    CLK_MARK(clk, FPH_NS_RESID)
+    TMARK(clk, FPH_NS_RESID, threadIdx.x == 0)
     if (p.n_pad) mx = nanmax(mx, fabsf(1.f - xp));
     product<OP_UPDATE>(n, n, X, R, nullptr, 1.f, X, 0.f, Y, stage, red, clk);
-    CLK_MARK(clk, FPH_NS_UPDATE)
+    TMARK(clk, FPH_NS_UPDATE, threadIdx.x == 0)
     float* t = X; X = Y; Y = t;
     r = mx;
     xp = xp + xp * (1.f - xp);

@@ -26,20 +26,19 @@ sees no pad residual, while on the Jacobi path the pad scalar starts at
 Both versions carry that scalar (returned as ``kinv_pad``) and hand it to
 the rescue, whose warm test on Kinv/s sees the pad block as B1's does.
 
-The CUDA version (``csrc/cuda_qp_fused.cu``) runs one CTA of 512 threads
-per scenario (each scenario exits its own Newton-Schulz loop and its own
-ADMM loop) with K, X, Y and R in a per-scenario global workspace
-(4 n^2 floats, allocated here), then B1's rescue launch
-(``cuda_qp.launch_rescue``) for the lanes that need it. Its products hold
-the whole n x n output in registers (8 x 8 outputs a thread, ``cuda_qp.geo``)
-and stream the operands through double-buffered shared-memory slabs; each
-output keeps the first port's fmaf chain, so the bits are those of the
-64 x 64-tiled GEMM it replaced. Its ADMM phase runs on B1's core in the
-layout ``cuda_qp.choose_layout`` picks (resident: A and P compressed into
-shared memory, the refreshed inverse copied into the Kinv slot, over which
-the slab buffers lie until then); scenarios it streams are counted in
-:data:`streamed`. :func:`plan` is the launch's shared memory, CTAs per SM
-and waves.
+The CUDA version (``csrc/cuda_qp_fused.cu``) is one call of three
+launches, each one CTA of 512 threads per scenario (each scenario exits
+its own Newton-Schulz loop and its own ADMM loop): the prologue, with K,
+X, Y and R in a per-scenario global workspace (4 n^2 floats, allocated
+here), whose products hold the whole n x n output in registers (8 x 8
+outputs a thread, ``cuda_qp.geo``) and stream the operands through
+double-buffered shared-memory slabs, each output keeping the first port's
+fmaf chain (so the bits are those of the 64 x 64-tiled GEMM it replaced);
+then B1's main kernel on the refreshed inverse, in the layout
+``cuda_qp.choose_layout`` picks, its streamed scenarios counted in
+:data:`streamed` (B1's launch counters do not count it); then B1's rescue
+launch (``cuda_qp.launch_rescue``) for the lanes that need it.
+:func:`plan` is the prologue's shared memory, CTAs per SM and waves.
 """
 from __future__ import annotations
 
@@ -59,31 +58,29 @@ MAX_REGS = 128    # registers a thread may take at 512 threads, one CTA an SM
 
 
 class Plan(NamedTuple):
-    layout: str        # the ADMM phase's layout (cuda_qp.choose_layout)
-    nbytes: int        # dynamic shared memory of a CTA
+    layout: str        # the ADMM launch's layout (cuda_qp.choose_layout)
+    nbytes: int        # dynamic shared memory of a prologue CTA
     threads: int       # threads holding an output cell in a product pass
     passes: int        # passes of a product over the rows
-    ctas_per_sm: int   # by shared memory, threads and registers
+    ctas_per_sm: int   # of the prologue: shared memory, threads, registers
     waves: int         # of the batch over the card's SMs
 
 
 def plan(n: int, m: int, B: int = 256) -> Plan:
-    """The launch at (n, m) for a batch of B (the kernel source counts the
-    same bytes, ``rl_fused_smem_bytes``): B1's resident layout, whose Kinv
-    slot holds the product core's slabs and the Jacobi diagonal
-    (``cuda_qp.slot_floats``), or the context and those buffers where B1
-    streams. CTAs per SM count shared memory (with the runtime's
-    reservation), threads and registers: over 64 a thread (the 8 x 8 cells
-    and B1's core) hold the card to one CTA of 512 threads per SM."""
-    lay = cuda_qp.choose_layout(n, m)
-    nbytes = lay.nbytes if lay.name == "resident" else 4 * (
-        cuda_qp.ctx_floats(n, m) + cuda_qp.prologue_floats(n))
+    """The prologue launch at (n, m) for a batch of B (the kernel source
+    counts the same bytes, ``rl_fused_smem_bytes``): the context and the
+    product core's slabs and Jacobi diagonal. CTAs per SM count shared
+    memory (with the runtime's reservation), threads and registers: over
+    64 a thread (the 8 x 8 cells) hold the card to one CTA of 512 threads
+    per SM. The ADMM loop then runs as B1's main launch in ``layout``."""
+    nbytes = 4 * (cuda_qp.ctx_floats(n, m) + cuda_qp.prologue_floats(n))
     by_smem = (0 if nbytes > cuda_build.SMEM_PER_CTA else
                cuda_build.SMEM_PER_SM // (nbytes + cuda_build.SMEM_RESERVED))
     ctas = min(by_smem, 2048 // cuda_qp._NT,
                cuda_build.REGS_PER_SM // (cuda_qp._NT * MAX_REGS))
     g = cuda_qp.geo(n)
-    return Plan(lay.name, nbytes, g.cr * g.cells, g.passes, ctas,
+    return Plan(cuda_qp.choose_layout(n, m).name, nbytes, g.cr * g.cells,
+                g.passes, ctas,
                 -(-B // (ctas * cuda_build.N_SM)) if ctas else 0)
 
 
@@ -188,27 +185,21 @@ def _launchers(lib: ctypes.CDLL):
         main=cuda_build.bind(lib, "rl_admm_fused",
                              [cuda_qp._Params] + [ctypes.c_void_p] * 21
                              + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
-        ctas=cuda_build.bind(lib, "rl_fused_ctas_per_sm", [ctypes.c_int] * 4),
-        smem=cuda_build.bind(lib, "rl_fused_smem_bytes", [ctypes.c_int] * 4,
+        ctas=cuda_build.bind(lib, "rl_fused_ctas_per_sm", [ctypes.c_int] * 2),
+        smem=cuda_build.bind(lib, "rl_fused_smem_bytes", [ctypes.c_int] * 2,
                              ctypes.c_longlong))
 
 
 def smem_bytes_on_card(n: int, m: int) -> int:
-    """The launch's dynamic shared memory as the kernel source counts it,
-    in the layout ``cuda_qp.choose_layout`` picks (to hold :func:`plan`
-    against)."""
-    lay = cuda_qp.choose_layout(n, m)
-    return _launchers(cuda_build.library())["smem"](
-        n, m, lay.nnz_cap, int(lay.name == "resident"))
+    """The prologue launch's dynamic shared memory as the kernel source
+    counts it (to hold :func:`plan` against)."""
+    return _launchers(cuda_build.library())["smem"](n, m)
 
 
 def ctas_per_sm_on_card(n: int, m: int) -> int:
-    """CTAs per SM of the kernel by the card's own occupancy calculator
-    (shared memory, registers, threads), in the layout
-    ``cuda_qp.choose_layout`` picks."""
-    lay = cuda_qp.choose_layout(n, m)
-    return _launchers(cuda_build.library())["ctas"](
-        n, m, lay.nnz_cap, int(lay.name == "resident"))
+    """CTAs per SM of the prologue kernel by the card's own occupancy
+    calculator (shared memory, registers, threads)."""
+    return _launchers(cuda_build.library())["ctas"](n, m)
 
 
 def admm_iterate_fused(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0, z0,

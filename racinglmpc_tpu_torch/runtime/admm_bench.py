@@ -40,9 +40,9 @@ time of the same number of float32 products as ``torch.bmm`` (TF32 off)
 over the whole batch (no per-scenario exits). ``--phases`` prints scenario
 0's SM cycles in B4's prologue: the K build, the warm test, the residual
 and update products of its Newton-Schulz iterations (sums and per
-product), both passes as a whole, the copies and the ADMM loop, and over
-all its products the cycles a cell thread spent at the slab barriers,
-multiplying and in the epilogues, and a producer's issuing and waiting.
+product) and both passes as a whole, and over all its products the
+cycles a cell thread spent at the slab barriers, multiplying and in the
+epilogues, and a producer's issuing and waiting.
 """
 from __future__ import annotations
 
@@ -61,11 +61,14 @@ from racinglmpc_tpu_torch.ops import cuda_build, cuda_qp
 FUSED_NAMES = ("P", "A", "kinv0", "warm_ok", "q", "l", "u", "rho", "D", "E",
                "c", "x0", "z0", "y0")
 FUSED_PHASES = ("K build", "warm test", "NS residual products",
-                "NS update products", "NS passes", "copies", "ADMM loop",
+                "NS update products", "NS passes",
                 "cell thread: slab barriers", "cell thread: multiply",
                 "cell thread: epilogues", "producer: issue",
                 "producer: wait")    # qp_common.cuh: FPH_*
 SPARSE = ("P", "A")              # stored sparse by --kernel b4 --save
+# the kernels of a B4 call (its prologue and ADMM launches, then B1's
+# rescue), as torch.profiler names them
+B4_KERNELS = ("admm_fused", "admm_main", "admm_rescue")
 PHASES = ("v.Kinv", "rho A xt", "A'(rho z - y)", "xt.P + A'(rho A xt)",
           "A xt + z, y update", "check", "prologue",
           "vectors + Kinv wait")   # qp_common.cuh: PH_*
@@ -253,7 +256,7 @@ def _bmm_ms(args, out) -> tuple:
     return kernel_bench.event_ms(run), 1 + k
 
 
-def load_b4(path: str, dump=None) -> None:
+def load_b4(path: str) -> None:
     from racinglmpc_tpu_torch.ops import cuda_qp_fused
     from racinglmpc_tpu_torch.runtime import kernel_bench
 
@@ -264,9 +267,6 @@ def load_b4(path: str, dump=None) -> None:
 
         out = fn()
         torch.cuda.synchronize()
-        if dump:
-            torch.save({k: v.cpu() for k, v in out._asdict().items()},
-                       f"{dump}_{key}.pt")
         B, n = args[4].shape
         m = args[5].shape[1]
         ctas = None
@@ -277,8 +277,7 @@ def load_b4(path: str, dump=None) -> None:
         print(json.dumps(dict(
             kernel="B4", config=key, batch=B, n=n, m=m,
             ms=kernel_bench.event_ms(fn),
-            device_ms=kernel_bench.device_ms(fn, ("admm_fused",
-                                                  "admm_rescue")),
+            device_ms=kernel_bench.device_ms(fn, B4_KERNELS),
             ns_iters_mean=float(ns.mean()), ns_iters_max=int(ns.max()),
             warm=int(out.warm.sum()), warm_ok=int(args[3].sum()),
             admm_iters_mean=float(out.iters.float().mean()),
@@ -320,16 +319,11 @@ if __name__ == "__main__":
     ap.add_argument("--load", help="time the kernel on stored inputs")
     ap.add_argument("--phases", help="phase clocks of the kernel on stored "
                     "inputs")
-    ap.add_argument("--dump", help="B4: also store --load's outputs in "
-                    "DUMP_<config>.pt")
     a = ap.parse_args()
     b4 = a.kernel == "b4"
     if a.save:
         (save_b4 if b4 else save)(a.save)
     if a.load:
-        if b4:
-            load_b4(a.load, a.dump)
-        else:
-            load(a.load)
+        (load_b4 if b4 else load)(a.load)
     if a.phases:
         (phases_b4 if b4 else phases)(a.phases)
