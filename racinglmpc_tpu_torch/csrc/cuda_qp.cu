@@ -48,9 +48,9 @@
 // The rare rescue lanes build K2 and run the Newton-Schulz passes on B4's
 // product core (qp_common.cuh: the whole n x n output in registers, the
 // operands staged by producer warps) with the n x n matrices in a global
-// workspace (the slabs overlay the Kinv slot), then copy X into the slot
-// and run their chunks on the resident core; other lanes' CTAs return at
-// once.
+// workspace, in a launch of their own (beside the ADMM core's state the
+// core spilled); a second launch copies the inverse into the slot and runs
+// their chunks on the resident core. Other lanes' CTAs return at once.
 #include "qp_common.cuh"
 
 // (NT, 1): without the 1, ptxas may cap this kernel at 64 registers and
@@ -105,47 +105,38 @@ admm_main_resident(const QPParams p, const float* P_, const float* Kinv_,
               stats, flags, streamed);
 }
 
-// kpad: per-scenario pad-block scalar of Kinv (B4's refreshed inverse), or
-// nullptr when Kinv's pad block is zero (B1)
-template <bool RES>
+// The rescue's Newton-Schulz prologue, on the lanes flags[:, 2] marks:
+// K2 = (A' (rho A)) s + P + sigma I, its inverse from Jacobi or Kinv / s,
+// written to the first n^2 floats of the lane's workspace. kpad:
+// per-scenario pad-block scalar of Kinv (B4's refreshed inverse), or
+// nullptr when Kinv's pad block is zero (B1). Its own kernel: beside the
+// ADMM core's state the product core spilled.
 __global__ void __launch_bounds__(NT, 1)
-admm_rescue(const QPParams p, const float* P_, const float* Kinv_,
-            const float* A_, const float* nvecs, const float* vecs,
-            const float* cinv, const float* kpad, float* xo, float* zo,
-            float* yo, float* stats, int* flags, float* ws) {
+admm_rescue_prologue(const QPParams p, const float* P_, const float* Kinv_,
+                     const float* A_, const float* vecs, const float* kpad,
+                     const int* flags, float* ws) {
   const int b = blockIdx.x;
   if (flags[b * NFLAG + 2] == 0) return;
   const int n = p.n, m = p.m, tid = threadIdx.x;
-  unsigned char* smb = dyn_smem();
-  const float* P = P_ + (size_t)b * n * n;
-  const float* Kinv = Kinv_ + (size_t)b * n * n;
-  const float* A = A_ + (size_t)b * m * n;
-  float *ctxp, *slot;
-  Sparse s;
-  bool fits = false;
-  if (RES) {
-    const Resident L = resident_layout(n, m, p.nnz_cap);
-    ctxp = reinterpret_cast<float*>(smb + L.ctx);
-    slot = reinterpret_cast<float*>(smb + L.slot);
-    s = carve_sparse(smb, L);
-    fits = build_sparse(p, A, P, s, reinterpret_cast<int*>(ctxp));
-    __syncthreads();
-  } else {
-    ctxp = reinterpret_cast<float*>(smb);
-    slot = ctxp + ctx_floats(n, m);
-  }
+  const size_t nn = (size_t)n * n;
+  const float* Kinv = Kinv_ + (size_t)b * nn;
+  float* ctxp = reinterpret_cast<float*>(dyn_smem());
   Ctx c = carve(ctxp, n, m);
-  float* stage = slot;   // the product core's slabs, then the diagonal
+  float* stage = ctxp + ctx_floats(n, m);   // the slabs, then the diagonal
   float* dg = stage + 2 * PK * (geo(n).sa + 8 * geo(n).cells);
-  float* K2 = ws + (size_t)b * 4 * n * n;
-  float* X = K2 + (size_t)n * n;
-  float* Y = X + (size_t)n * n;
-  float* R = Y + (size_t)n * n;
-  load_state(p, c, b, nvecs, vecs, xo, zo, yo);
+  float* K2 = ws + (size_t)b * 4 * nn;
+  float* X = K2 + nn;
+  float* Y = X + nn;
+  float* R = Y + nn;
+  const float* rho = vecs + (size_t)b * 5 * m + 2 * m;   // pack_vectors
+  for (int i = tid; i < m; i += NT) c.rho[i] = rho[i];
+  __syncthreads();
   const float s_r = p.rescue_rho_scale;
 
   // K2 = (A' (rho A)) s + P + sigma I and its Jacobi init
-  const float cjm = k_jacobi(p, c, P, A, s_r, K2, dg, stage, nullptr);
+  const float cjm = k_jacobi(p, c, P_ + (size_t)b * nn,
+                             A_ + (size_t)b * m * n, s_r, K2, dg, stage,
+                             nullptr);
   const float xj_pad = 1.f / cjm;
 
   // warm test on Kinv / s: the pad block adds n_pad (1 - kp/s)^2 to the
@@ -155,7 +146,7 @@ admm_rescue(const QPParams p, const float* P_, const float* Kinv_,
   const float pad_sq = p.n_pad ? (float)p.n_pad * pad_d * pad_d : 0.f;
   bool use_warm = false;
   if (pad_sq < 0.81f) {
-    for (size_t e = tid; e < (size_t)n * n; e += NT) X[e] = Kinv[e] / s_r;
+    for (size_t e = tid; e < nn; e += NT) X[e] = Kinv[e] / s_r;
     __syncthreads();
     product<OP_RESID>(n, n, K2, X, nullptr, 1.f, nullptr, 0.f, R, stage,
                       c.red, nullptr);
@@ -171,8 +162,42 @@ admm_rescue(const QPParams p, const float* P_, const float* Kinv_,
     xp = xj_pad;
   }
   ns_run(p, n, K2, X, Y, R, xp, stage, c.red, &its, nullptr);
+  for (size_t e = tid; e < nn; e += NT) K2[e] = X[e];   // K2 is done with
+}
 
-  // iterations at rho * s with K2inv = X
+// The rescue's iterations at rho * s with K2inv (the prologue's output,
+// the first n^2 floats of the lane's workspace), on the lanes flags[:, 2]
+// marks, from the main launch's iterates.
+template <bool RES>
+__global__ void __launch_bounds__(NT, 1)
+admm_rescue(const QPParams p, const float* P_, const float* A_,
+            const float* nvecs, const float* vecs, const float* cinv,
+            float* xo, float* zo, float* yo, float* stats, int* flags,
+            const float* ws) {
+  const int b = blockIdx.x;
+  if (flags[b * NFLAG + 2] == 0) return;
+  const int n = p.n, m = p.m, tid = threadIdx.x;
+  unsigned char* smb = dyn_smem();
+  const float* P = P_ + (size_t)b * n * n;
+  const float* A = A_ + (size_t)b * m * n;
+  const float* X = ws + (size_t)b * 4 * n * n;
+  float *ctxp, *slot;
+  Sparse s;
+  bool fits = false;
+  if (RES) {
+    const Resident L = resident_layout(n, m, p.nnz_cap);
+    ctxp = reinterpret_cast<float*>(smb + L.ctx);
+    slot = reinterpret_cast<float*>(smb + L.slot);
+    s = carve_sparse(smb, L);
+    fits = build_sparse(p, A, P, s, reinterpret_cast<int*>(ctxp));
+    __syncthreads();
+  } else {
+    ctxp = reinterpret_cast<float*>(smb);
+    slot = nullptr;
+  }
+  Ctx c = carve(ctxp, n, m);
+  load_state(p, c, b, nvecs, vecs, xo, zo, yo);
+  const float s_r = p.rescue_rho_scale;
   for (int i = tid; i < m; i += NT) {
     c.rho[i] = c.rho[i] * s_r;
     c.rinv[i] = c.rinv[i] / s_r;
@@ -182,7 +207,7 @@ admm_rescue(const QPParams p, const float* P_, const float* Kinv_,
   int iters = it_main + p.rescue_max_iter;
   bool rdone = false;
   float pri = stats[b * 2 + 0], dua = stats[b * 2 + 1];
-  if (RES) {   // X into the slot (the product slabs are done with)
+  if (RES) {   // K2inv into the slot
     for (size_t e = tid; e < (size_t)n * n; e += NT) slot[e] = X[e];
     __syncthreads();
     if (fits)
@@ -206,11 +231,10 @@ admm_rescue(const QPParams p, const float* P_, const float* Kinv_,
   }
 }
 
-// dynamic shared memory of the main launch (rescue: main = 0) in a layout
+// dynamic shared memory of the main and the rescue's iteration launches in
+// a layout
 extern "C" long long rl_admm_smem_bytes(int n, int m, int nnz_cap,
-                                        int layout, int main) {
-  if (!main) return (long long)prologue_smem(n, m, nnz_cap,
-                                             layout == LAYOUT_RESIDENT);
+                                        int layout) {
   if (layout == LAYOUT_RESIDENT)
     return (long long)resident_layout(n, m, nnz_cap).total;
   return (long long)(ctx_floats(n, m) * sizeof(float));
@@ -226,7 +250,7 @@ static const void* main_kernel(int layout) {
 // occupancy calculator: shared memory, registers and threads); < 0 on an
 // error
 extern "C" int rl_admm_ctas_per_sm(int n, int m, int nnz_cap, int layout) {
-  const size_t smem = rl_admm_smem_bytes(n, m, nnz_cap, layout, 1);
+  const size_t smem = rl_admm_smem_bytes(n, m, nnz_cap, layout);
   const void* fn = main_kernel(layout);
   if (set_smem(fn, smem)) return -1;
   int ctas = 0;
@@ -243,7 +267,7 @@ extern "C" int rl_admm(QPParams p, const float* P, const float* Kinv,
                        float* stats, int* flags, int* streamed, int layout,
                        int B, void* stream) {
   if (B <= 0) return 0;
-  const size_t smem = rl_admm_smem_bytes(p.n, p.m, p.nnz_cap, layout, 1);
+  const size_t smem = rl_admm_smem_bytes(p.n, p.m, p.nnz_cap, layout);
   int e = set_smem(main_kernel(layout), smem);
   if (e) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -265,21 +289,26 @@ extern "C" int rl_admm_rescue(QPParams p, const float* P, const float* Kinv,
                               float* yo, float* stats, int* flags, float* ws,
                               int layout, int B, void* stream) {
   if (B <= 0) return 0;
-  const size_t smem = rl_admm_smem_bytes(p.n, p.m, p.nnz_cap, layout, 0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t pro = prologue_smem(p.n, p.m);
+  int e = set_smem(reinterpret_cast<const void*>(admm_rescue_prologue), pro);
+  if (e) return e;
+  admm_rescue_prologue<<<B, NT, pro, st>>>(p, P, Kinv, A, vecs, kpad, flags,
+                                           ws);
+  e = static_cast<int>(cudaGetLastError());
+  if (e) return e;
+  const size_t smem = rl_admm_smem_bytes(p.n, p.m, p.nnz_cap, layout);
   const void* fn = layout == LAYOUT_RESIDENT
                        ? reinterpret_cast<const void*>(admm_rescue<true>)
                        : reinterpret_cast<const void*>(admm_rescue<false>);
-  int e = set_smem(fn, smem);
+  e = set_smem(fn, smem);
   if (e) return e;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (layout == LAYOUT_RESIDENT)
-    admm_rescue<true><<<B, NT, smem, st>>>(p, P, Kinv, A, nvecs, vecs, cinv,
-                                           kpad, xo, zo, yo, stats, flags,
-                                           ws);
+    admm_rescue<true><<<B, NT, smem, st>>>(p, P, A, nvecs, vecs, cinv, xo,
+                                           zo, yo, stats, flags, ws);
   else
-    admm_rescue<false><<<B, NT, smem, st>>>(p, P, Kinv, A, nvecs, vecs, cinv,
-                                            kpad, xo, zo, yo, stats, flags,
-                                            ws);
+    admm_rescue<false><<<B, NT, smem, st>>>(p, P, A, nvecs, vecs, cinv, xo,
+                                            zo, yo, stats, flags, ws);
   return static_cast<int>(cudaGetLastError());
 }
 

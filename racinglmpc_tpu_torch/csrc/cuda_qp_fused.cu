@@ -58,12 +58,6 @@ static __device__ long long fused_phase[FPH_N];   // qp_common.cuh: FPH_*
 #define FUSED_CLK static_cast<long long*>(nullptr)
 #endif
 
-// the prologue's dynamic shared memory: the context (rho and the
-// reductions' scratch) and the product core's slabs and diagonal
-static size_t fused_smem(int n, int m) {
-  return prologue_smem(n, m, 0, false);
-}
-
 // One CTA per SM by registers (the 8 x 8 cells need over 64 a thread at
 // 512 threads): the batch runs in waves of 132.
 __global__ void __launch_bounds__(NT, 1)
@@ -129,13 +123,13 @@ admm_fused_prologue(const QPParams p, const float* P_, const float* A_,
 
 // dynamic shared memory of the prologue launch
 extern "C" long long rl_fused_smem_bytes(int n, int m) {
-  return (long long)fused_smem(n, m);
+  return (long long)prologue_smem(n, m);
 }
 
 // CTAs per SM the card runs of the prologue kernel (the occupancy
 // calculator: shared memory, registers and threads); < 0 on an error
 extern "C" int rl_fused_ctas_per_sm(int n, int m) {
-  const size_t smem = fused_smem(n, m);
+  const size_t smem = prologue_smem(n, m);
   const void* fn = reinterpret_cast<const void*>(admm_fused_prologue);
   if (set_smem(fn, smem)) return -1;
   int ctas = 0;
@@ -164,7 +158,7 @@ extern "C" int rl_admm_fused(QPParams p, const float* P, const float* A,
                              int* ns_info, float* ws, int* streamed,
                              int layout, int B, void* stream) {
   if (B <= 0) return 0;
-  const size_t smem = fused_smem(p.n, p.m);
+  const size_t smem = prologue_smem(p.n, p.m);
   int e = set_smem(reinterpret_cast<const void*>(admm_fused_prologue), smem);
   if (e) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

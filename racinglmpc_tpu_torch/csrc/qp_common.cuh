@@ -156,9 +156,7 @@ static __host__ __device__ inline size_t prologue_floats(int n) {
 //    pool values | CSC values | pool rows | pool cols | CSC rows |
 //    A row ptr | A col ptr | P col ptr]
 // The Kinv slot holds n*n floats plus 4 of slack (the copy keeps the
-// source's alignment mod 16 bytes), and at least the prologue's buffers:
-// in the rescue it holds the product core's slabs and the Jacobi diagonal
-// until the inverse is copied in. The
+// source's alignment mod 16 bytes). The
 // pool takes the nonzeros of A then P in row-major order (it is A's CSR);
 // the CSC arrays hold A's columns then P's. ops/cuda_qp.py:smem_plan
 // mirrors this count.
@@ -168,8 +166,7 @@ struct Resident {
 };
 
 static __host__ __device__ inline size_t slot_floats(int n) {
-  const size_t a = (size_t)n * n + 4, b = prologue_floats(n);
-  return (size_t)r4((int)(a > b ? a : b));
+  return (size_t)r4(n * n + 4);
 }
 
 static __host__ __device__ inline Resident resident_layout(int n, int m,
@@ -189,13 +186,11 @@ static __host__ __device__ inline Resident resident_layout(int n, int m,
   return L;
 }
 
-// dynamic shared memory of a launch that runs the Newton-Schulz prologue
-// (B1's rescue; B4's prologue, res = false): the resident layout, whose
-// Kinv slot holds the prologue's buffers, or the context and the buffers
-static __host__ __device__ inline size_t prologue_smem(int n, int m, int cap,
-                                                       bool res) {
-  return res ? resident_layout(n, m, cap).total
-             : 4 * (ctx_floats(n, m) + prologue_floats(n));
+// dynamic shared memory of a Newton-Schulz prologue launch (B4's; B1's
+// rescue's): the context (rho and the reductions' scratch) and the
+// product core's slabs and Jacobi diagonal
+static __host__ __device__ inline size_t prologue_smem(int n, int m) {
+  return 4 * (ctx_floats(n, m) + prologue_floats(n));
 }
 
 struct Sparse {

@@ -19,10 +19,11 @@ more iterations with a primal-only exit.
 
 The CUDA version (``csrc/cuda_qp.cu``) is two launches: the main loop, one
 CTA per scenario (per-scenario early exit), then the rescue, one CTA per
-scenario that returns at once unless its scenario needs the rescue; K2 and
-the Newton-Schulz products run on B4's product core (the whole n x n
-output in registers, 8 x 8 outputs a thread), with the matrices in a
-global-memory workspace.
+scenario that returns at once unless its scenario needs the rescue: a
+prologue launch builds K2 and its Newton-Schulz inverse on B4's product
+core (the whole n x n output in registers, 8 x 8 outputs a thread), with
+the matrices in a global-memory workspace, then an iteration launch runs
+the rescue's chunks.
 
 Both launches run the ADMM core in one of two layouts (:func:`smem_plan`,
 :func:`choose_layout`). **Resident**: each CTA copies its Kinv into shared
@@ -118,9 +119,8 @@ def prologue_floats(n: int) -> int:
 
 def slot_floats(n: int) -> int:
     """Floats of the resident layout's Kinv slot (qp_common.cuh:slot_floats):
-    n^2 + 4, at least the prologue's buffers (the rescue and B4 stage their
-    products there)."""
-    return _r4(max(n * n + 4, prologue_floats(n)))
+    n^2 + 4."""
+    return _r4(n * n + 4)
 
 
 def smem_plan(n: int, m: int, nnz_cap: int) -> Tuple[int, int]:
@@ -414,7 +414,7 @@ def _launchers(lib: ctypes.CDLL):
         rescue=cuda_build.bind(lib, "rl_admm_rescue",
                                [_Params] + [ctypes.c_void_p] * 13 + tail),
         ctas=cuda_build.bind(lib, "rl_admm_ctas_per_sm", [ctypes.c_int] * 4),
-        smem=cuda_build.bind(lib, "rl_admm_smem_bytes", [ctypes.c_int] * 5,
+        smem=cuda_build.bind(lib, "rl_admm_smem_bytes", [ctypes.c_int] * 4,
                              ctypes.c_longlong))
 
 
@@ -454,7 +454,7 @@ def smem_bytes_on_card(n: int, m: int, layout: Layout) -> int:
     """The main launch's dynamic shared memory as the kernel source counts
     it (to hold :func:`smem_plan` against)."""
     return _launchers(cuda_build.library())["smem"](
-        n, m, layout.nnz_cap, int(layout.name == "resident"), 1)
+        n, m, layout.nnz_cap, int(layout.name == "resident"))
 
 
 def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
