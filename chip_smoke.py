@@ -21,7 +21,8 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    main path's shapes (the FTOCPs, lap store and plant states of the batch
    just driven): rollout |dx| < 1e-4, sys-ID |dA|,|dB|,|dC| < 1e-3 (also on
    a ragged store with a 4-row and an empty lap, on a store of tied
-   feature rows and on the store zero-padded to T = 1024), each bit-identical
+   feature rows and on the store zero-padded to T = 1024, and with knn_max
+   8 and 40 through B2's rescan instance), each bit-identical
    over two calls, and B2's shared-memory plan against the kernel source's
    count and the card's occupancy (one wave); B2 and B3 are timed by CUDA
    events around 20 back-to-back launches, divided by 20, and every kernel's
@@ -498,9 +499,9 @@ def main() -> int:
                   torch.nn.functional.pad(st.x, pad).contiguous(),
                   torch.nn.functional.pad(st.u, pad).contiguous(), st.steps)}
 
-    def sysid_k(store):
+    def sysid_k(store, lcfg=cfg.lmpc):
         return cuda_sysid.local_linearization_horizon(
-            store, trk, x_lin, u_lin, cfg.lmpc, cfg.sim.dt, table=table)
+            store, trk, x_lin, u_lin, lcfg, cfg.sim.dt, table=table)
 
     errs = {}
     for name, store in stores.items():
@@ -508,6 +509,21 @@ def main() -> int:
         p = cuda_sysid.local_linearization_horizon_plain(
             store, trk, x_lin, u_lin, cfg.lmpc, cfg.sim.dt)
         errs[name] = max(float((a - b).abs().max()) for a, b in zip(k, p))
+    # knn above a lane's list: the rescan instance (one and two chunks of
+    # 32 rounds), on the full store and the ties
+    for knn in (cuda_sysid.MAX_KNN + 1, 40):
+        lcfg = dataclasses.replace(cfg.lmpc, knn_max=knn)
+        for name in ("full", "ties"):
+            k = sysid_k(stores[name], lcfg)
+            p = cuda_sysid.local_linearization_horizon_plain(
+                stores[name], trk, x_lin, u_lin, lcfg, cfg.sim.dt)
+            errs[f"{name} knn={knn}"] = max(float((a - b).abs().max())
+                                            for a, b in zip(k, p))
+        pl = cuda_sysid.plan(Kl, T, N, B, knn)
+        card = (cuda_sysid.smem_bytes_on_card(T, N, pl.nbuf, knn),
+                cuda_sysid.ctas_per_sm_on_card(T, N, pl.nbuf, knn))
+        check(f"sysid_plan_knn{knn}_matches_kernel_source",
+              card == (pl.nbytes, pl.ctas_per_sm), f"({pl}; card {card})")
     check("sysid_vs_plain", max(errs.values()) < 1e-3,
           "(max |dA|,|dB|,|dC| " + ", ".join(
               f"{n} {e:.2e}" for n, e in errs.items()) + ")")

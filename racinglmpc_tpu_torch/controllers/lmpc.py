@@ -345,21 +345,16 @@ class LMPCController:
 
     @property
     def use_kernel_sysid(self) -> bool:
-        """Engagement rule of the sys-ID kernel, decided before the call:
-        float32 state, the reference's ``model_pts % 128 == 0`` gate, the
-        kernel's limits (``knn_max <= MAX_KNN``, ``N <= MAX_N``), and a
-        CUDA track, or ``sysid_interpret`` (plain version on the CPU).
-        Elsewhere the step takes the plain sys-ID, as the reference takes
-        its XLA path."""
+        """Engagement rule of the sys-ID kernel, the reference's: float32
+        state, ``model_pts % 128 == 0``, and a CUDA track, or
+        ``sysid_interpret`` (plain version on the CPU). Elsewhere the step
+        takes the plain sys-ID, as the reference takes its XLA path."""
         return (self.cfg.use_pallas_sysid and self.dtype == torch.float32
                 and self.cfg.model_pts % 128 == 0
-                and self.cfg.knn_max <= cuda_sysid.MAX_KNN
-                and self.cfg.N <= cuda_sysid.MAX_N
                 and (self.trk.s0.is_cuda or self.cfg.sysid_interpret))
 
     def sysid(self, store, x_lin, u_lin):
-        # the kernel stages laps of an even row count
-        if self.use_kernel_sysid and store.x.shape[2] % 2 == 0:
+        if self.use_kernel_sysid:
             return cuda_sysid.local_linearization_horizon(
                 store, self.trk, x_lin.contiguous(), u_lin.contiguous(),
                 self.cfg, self.dt_ctrl, table=self.table)

@@ -41,6 +41,13 @@
 //   elimination's operations; lane 0 then writes the kinematic rows.
 // So every output has the bits of the one-warp-per-query kernel before
 // it (the output checksums of runtime/kernel_bench.py --load).
+//
+// knn_max above RL_MAX_KNN (a lane's list could run dry) takes a second
+// instance of the same kernel, sysid_kernel<true>: each round rescans the
+// lane's candidates for the smallest (distance, index) after the last pick,
+// which selects the same rows in the same order, and the picks are
+// recorded and summed in chunks of 32 rounds (a warp's scratch holds 32
+// records).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -51,6 +58,7 @@
 #define RL_MAX_SEG 16
 #define RL_MAX_KNN 7                      // the picks a lane's list holds
 #define RL_WARP_FLOATS (RL_MAX_KNN * 10)  // a warp's scratch (>= 65)
+#define RL_CHUNK 32                       // rounds a rescan records at once
 #define FULL 0xffffffffu
 
 // phases of warp 0 of scenario 0 (-DRL_PHASES)
@@ -69,7 +77,7 @@ struct SysidParams {
 // dynamic shared memory, in bytes (ops/cuda_sysid.py:plan mirrors it):
 //   [2 mbarriers (16) | segment table s0, curv (128) | 16 spare]
 //   [nbuf lap buffers of T x 8 floats: x (T x 6) then u (T x 2)]
-//   [N x RL_WARP_FLOATS: each warp's picks of a lap (weight and the nine
+//   [N x warp_floats(knn): each warp's picks of a lap (weight and the nine
 //    features of each), then its two augmented systems, Mv (5x6) and
 //    Ml (5x7)]
 // ---------------------------------------------------------------------------
@@ -77,12 +85,18 @@ struct SysidSmem {
   size_t lap, gj, total;
 };
 
+// a warp's scratch: RL_MAX_KNN records, or a rescan's chunk of records
+static __host__ __device__ inline int warp_floats(int knn) {
+  return knn <= RL_MAX_KNN ? RL_WARP_FLOATS
+                           : 10 * (knn < RL_CHUNK ? knn : RL_CHUNK);
+}
+
 static __host__ __device__ inline SysidSmem sysid_smem(int T, int N,
-                                                        int nbuf) {
+                                                        int nbuf, int knn) {
   SysidSmem s;
   s.lap = 160;
   s.gj = s.lap + (size_t)nbuf * T * 8 * sizeof(float);
-  s.total = s.gj + (size_t)N * RL_WARP_FLOATS * sizeof(float);
+  s.total = s.gj + (size_t)N * warp_floats(knn) * sizeof(float);
   return s;
 }
 
@@ -175,6 +189,60 @@ static __device__ Entry entry_of(int e) {
   return n;
 }
 
+// scaled-L1 distance of row t of the staged lap (lx, lu) to the query z
+static __device__ __forceinline__ float dist_of(const float* lx,
+                                                const float* lu, int t,
+                                                const float (&z)[5],
+                                                const float (&scal)[5]) {
+  const float2 xy = *reinterpret_cast<const float2*>(lx + t * 6);
+  const float2 du = *reinterpret_cast<const float2*>(lu + t * 2);
+  const float f[5] = {xy.x, xy.y, lx[t * 6 + 2], du.x, du.y};
+  float dist = 0.f;
+#pragma unroll
+  for (int j = 0; j < 5; ++j)
+    dist = __fadd_rn(dist, fabsf(__fmul_rn(f[j] - z[j], scal[j])));
+  return dist;
+}
+
+// a pick's record: its weight and nine features (row, successor)
+static __device__ __forceinline__ void record(float* rec, const float* lx,
+                                              const float* lu, int sel_t,
+                                              float sel_d, int T, float h) {
+  const float q = sel_d / h;
+  const float wgt = sel_d < h
+      ? __fmul_rn(0.75f, __fsub_rn(1.0f, __fmul_rn(q, q))) : 0.0f;
+  const int sc = sel_t + 1 < T ? sel_t + 1 : T - 1;
+  rec[0] = wgt;
+  rec[1] = lx[sel_t * 6 + 0];
+  rec[2] = lx[sel_t * 6 + 1];
+  rec[3] = lx[sel_t * 6 + 2];
+  rec[4] = lu[sel_t * 2 + 0];
+  rec[5] = lu[sel_t * 2 + 1];
+  rec[6] = 1.0f;
+  rec[7] = lx[sc * 6 + 0];
+  rec[8] = lx[sc * 6 + 1];
+  rec[9] = lx[sc * 6 + 2];
+}
+
+// this lane's entries summed over the n records in round order, with
+// unfused multiplies and adds: the plain version's rounding, operation for
+// operation (these 5x5 systems are near singular when stored laps repeat,
+// so contraction differences would be amplified)
+static __device__ __forceinline__ void accumulate(float& acc0, float& acc1,
+                                                  const float* gw, int n,
+                                                  const Entry& e0,
+                                                  const Entry& e1, bool two) {
+  for (int r = 0; r < n; ++r) {
+    const float* rec = gw + r * 10;
+    acc0 = __fadd_rn(acc0, __fmul_rn(__fmul_rn(rec[0], rec[1 + e0.f1]),
+                                     rec[1 + e0.f2]));
+    if (two)
+      acc1 = __fadd_rn(acc1, __fmul_rn(__fmul_rn(rec[0], rec[1 + e1.f1]),
+                                       rec[1 + e1.f2]));
+  }
+}
+
+template <bool RESCAN>
 __global__ void __launch_bounds__(1024, 1)
 sysid_kernel(const SysidParams p, const float* __restrict__ sx,
              const float* __restrict__ su, const int* __restrict__ steps,
@@ -183,7 +251,7 @@ sysid_kernel(const SysidParams p, const float* __restrict__ sx,
              float* __restrict__ outC) {
   extern __shared__ __align__(16) unsigned char sm[];
   const int T = p.T, K = p.K, nbuf = p.nbuf;
-  const SysidSmem lay = sysid_smem(T, p.N, nbuf);
+  const SysidSmem lay = sysid_smem(T, p.N, nbuf, p.knn);
   uint64_t* bar = reinterpret_cast<uint64_t*>(sm);
   float* ts0 = reinterpret_cast<float*>(sm + 16);
   float* tcv = ts0 + RL_MAX_SEG;
@@ -191,7 +259,8 @@ sysid_kernel(const SysidParams p, const float* __restrict__ sx,
   const int b = blockIdx.x;
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* gw = reinterpret_cast<float*>(sm + lay.gj) + w * RL_WARP_FLOATS;
+  float* gw = reinterpret_cast<float*>(sm + lay.gj) +
+              w * (RESCAN ? warp_floats(p.knn) : RL_WARP_FLOATS);
   RL_PHASE_START(b == 0 && threadIdx.x == 0)
 
   if (threadIdx.x == 0) {
@@ -224,82 +293,88 @@ sysid_kernel(const SysidParams p, const float* __restrict__ sx,
     mbar_wait(&bar[k % nbuf], (uint32_t)(k / nbuf) & 1u);
     RL_PHASE(rl_sysid_phase, SP_STAGE, lx[lane])
 
-    // distances of this lane's candidates t = lane, lane + 32, ... into
-    // its sorted list; the invalid ones (rows steps-1 on, empty laps)
-    // would enter at +inf, which never enters
     const int st = steps[b * K + k];
     const int nvalid = st < p.empty ? (st < T ? st : T) - 1 : 0;
-    float ld[RL_MAX_KNN];
-    int lt[RL_MAX_KNN];
+    if (!RESCAN) {
+      // distances of this lane's candidates t = lane, lane + 32, ... into
+      // its sorted list; the invalid ones (rows steps-1 on, empty laps)
+      // would enter at +inf, which never enters
+      float ld[RL_MAX_KNN];
+      int lt[RL_MAX_KNN];
 #pragma unroll
-    for (int i = 0; i < RL_MAX_KNN; ++i) {
-      ld[i] = INFINITY;
-      lt[i] = 0;
-    }
-    for (int t = lane; t < nvalid; t += 32) {
-      const float2 xy = *reinterpret_cast<const float2*>(lx + t * 6);
-      const float2 du = *reinterpret_cast<const float2*>(lu + t * 2);
-      const float f[5] = {xy.x, xy.y, lx[t * 6 + 2], du.x, du.y};
-      float dist = 0.f;
-#pragma unroll
-      for (int j = 0; j < 5; ++j)
-        dist = __fadd_rn(dist, fabsf(__fmul_rn(f[j] - z[j], scal[j])));
-      insert(ld, lt, dist, t);
-    }
-    RL_PHASE(rl_sysid_phase, SP_DIST, ld[0])
-
-    // knn rounds: the smallest head (distance bits, non-negative floats
-    // order as unsigned), then the smallest index among equal heads; lane
-    // r keeps round r's pick
-    int sel_t = 0;
-    float sel_d = INFINITY;
-    for (int r = 0; r < p.knn; ++r) {
-      const unsigned hd = __float_as_uint(ld[0]);
-      const unsigned md = __reduce_min_sync(FULL, hd);
-      int pick = 0;
-      if (md < 0x7f800000u) {
-        pick = (int)__reduce_min_sync(FULL, hd == md ? (unsigned)lt[0]
-                                                     : 0xffffffffu);
-        if (lane == (pick & 31)) pop(ld, lt);
+      for (int i = 0; i < RL_MAX_KNN; ++i) {
+        ld[i] = INFINITY;
+        lt[i] = 0;
       }
-      if (lane == r) {
-        sel_t = pick;
-        sel_d = __uint_as_float(md);
-      }
-    }
-    RL_PHASE(rl_sysid_phase, SP_SELECT, sel_d)
+      for (int t = lane; t < nvalid; t += 32)
+        insert(ld, lt, dist_of(lx, lu, t, z, scal), t);
+      RL_PHASE(rl_sysid_phase, SP_DIST, ld[0])
 
-    // lane r < knn gathers round r's record: the weight and the pick's
-    // nine features (row, successor) from the staged lap
-    if (lane < p.knn) {
-      const float q = sel_d / p.h;
-      const float wgt = sel_d < p.h
-          ? __fmul_rn(0.75f, __fsub_rn(1.0f, __fmul_rn(q, q))) : 0.0f;
-      const int sc = sel_t + 1 < T ? sel_t + 1 : T - 1;
-      float* rec = gw + lane * 10;
-      rec[0] = wgt;
-      rec[1] = lx[sel_t * 6 + 0];
-      rec[2] = lx[sel_t * 6 + 1];
-      rec[3] = lx[sel_t * 6 + 2];
-      rec[4] = lu[sel_t * 2 + 0];
-      rec[5] = lu[sel_t * 2 + 1];
-      rec[6] = 1.0f;
-      rec[7] = lx[sc * 6 + 0];
-      rec[8] = lx[sc * 6 + 1];
-      rec[9] = lx[sc * 6 + 2];
-    }
-    __syncwarp();
-    // this lane's entries summed over the picks in round order, with
-    // unfused multiplies and adds: the plain version's rounding, operation
-    // for operation (these 5x5 systems are near singular when stored laps
-    // repeat, so contraction differences would be amplified)
-    for (int r = 0; r < p.knn; ++r) {
-      const float* rec = gw + r * 10;
-      acc0 = __fadd_rn(acc0, __fmul_rn(__fmul_rn(rec[0], rec[1 + e0.f1]),
-                                       rec[1 + e0.f2]));
-      if (two)
-        acc1 = __fadd_rn(acc1, __fmul_rn(__fmul_rn(rec[0], rec[1 + e1.f1]),
-                                         rec[1 + e1.f2]));
+      // knn rounds: the smallest head (distance bits, non-negative floats
+      // order as unsigned), then the smallest index among equal heads;
+      // lane r keeps round r's pick
+      int sel_t = 0;
+      float sel_d = INFINITY;
+      for (int r = 0; r < p.knn; ++r) {
+        const unsigned hd = __float_as_uint(ld[0]);
+        const unsigned md = __reduce_min_sync(FULL, hd);
+        int pick = 0;
+        if (md < 0x7f800000u) {
+          pick = (int)__reduce_min_sync(FULL, hd == md ? (unsigned)lt[0]
+                                                       : 0xffffffffu);
+          if (lane == (pick & 31)) pop(ld, lt);
+        }
+        if (lane == r) {
+          sel_t = pick;
+          sel_d = __uint_as_float(md);
+        }
+      }
+      RL_PHASE(rl_sysid_phase, SP_SELECT, sel_d)
+
+      // lane r < knn gathers round r's record from the staged lap
+      if (lane < p.knn) record(gw + lane * 10, lx, lu, sel_t, sel_d, T, p.h);
+      __syncwarp();
+      accumulate(acc0, acc1, gw, p.knn, e0, e1, two);
+    } else {
+      // each round: every lane's smallest (distance, index) after the last
+      // pick (pd, pt), then the same two warp-wide min-reductions; after
+      // the last finite distance, row 0 at +inf as above
+      float pd = -1.0f;
+      int pt = -1;
+      for (int r0 = 0; r0 < p.knn; r0 += RL_CHUNK) {
+        const int n = p.knn - r0 < RL_CHUNK ? p.knn - r0 : RL_CHUNK;
+        int sel_t = 0;
+        float sel_d = INFINITY;
+        for (int r = 0; r < n; ++r) {
+          float bd = INFINITY;
+          int bt = 0;
+          for (int t = lane; t < nvalid; t += 32) {
+            const float d = dist_of(lx, lu, t, z, scal);
+            if ((d > pd || (d == pd && t > pt)) && d < bd) {
+              bd = d;
+              bt = t;
+            }
+          }
+          const unsigned hd = __float_as_uint(bd);
+          const unsigned md = __reduce_min_sync(FULL, hd);
+          int pick = 0;
+          if (md < 0x7f800000u)
+            pick = (int)__reduce_min_sync(FULL, hd == md ? (unsigned)bt
+                                                         : 0xffffffffu);
+          pd = __uint_as_float(md);
+          pt = pick;
+          if (lane == r) {
+            sel_t = pick;
+            sel_d = pd;
+          }
+        }
+        // lane r < n records round r0 + r; the chunk is summed before the
+        // next one overwrites the records
+        if (lane < n) record(gw + lane * 10, lx, lu, sel_t, sel_d, T, p.h);
+        __syncwarp();
+        accumulate(acc0, acc1, gw, n, e0, e1, two);
+        __syncwarp();
+      }
     }
     RL_PHASE(rl_sysid_phase, SP_ACCUM, acc0 + acc1)
     __syncthreads();   // every warp is done with this buffer
@@ -409,8 +484,9 @@ sysid_kernel(const SysidParams p, const float* __restrict__ sx,
   RL_PHASE(rl_sysid_phase, SP_KIN, C[5])
 }
 
-// raises the kernel's dynamic shared-memory limit to smem, once per size
+// raises the instance's dynamic shared-memory limit to smem, once per size
 // and device (each setting is a round trip to the CUDA runtime)
+template <bool RESCAN>
 static cudaError_t allow(size_t smem) {
   static size_t allowed[16] = {};
   int dev = 0;
@@ -418,41 +494,56 @@ static cudaError_t allow(size_t smem) {
   if (e != cudaSuccess) return e;
   size_t& ok = allowed[dev & 15];
   if (smem <= ok) return cudaSuccess;
-  e = cudaFuncSetAttribute(sysid_kernel,
+  e = cudaFuncSetAttribute(sysid_kernel<RESCAN>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e == cudaSuccess) ok = smem;
   return e;
 }
 
+template <bool RESCAN>
+static int ctas_per_sm(int N, size_t smem) {
+  int ctas = 0;
+  if (allow<RESCAN>(smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &ctas, sysid_kernel<RESCAN>, N * 32, smem) != cudaSuccess)
+    return -1;
+  return ctas;
+}
+
+template <bool RESCAN>
+static int launch(const SysidParams& p, const float* sx, const float* su,
+                  const int* steps, const float* xq, const float* uq,
+                  float* A, float* Bm, float* C, int B, void* stream) {
+  const size_t smem = sysid_smem(p.T, p.N, p.nbuf, p.knn).total;
+  const cudaError_t e = allow<RESCAN>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sysid_kernel<RESCAN><<<B, p.N * 32, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      p, sx, su, steps, xq, uq, A, Bm, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the dynamic shared memory of a launch, as the kernel counts it
-extern "C" long long rl_sysid_smem_bytes(int T, int N, int nbuf) {
-  return (long long)sysid_smem(T, N, nbuf).total;
+extern "C" long long rl_sysid_smem_bytes(int T, int N, int nbuf, int knn) {
+  return (long long)sysid_smem(T, N, nbuf, knn).total;
 }
 
 // CTAs per SM by the card's occupancy calculator (shared memory,
-// registers, threads)
-extern "C" int rl_sysid_ctas_per_sm(int T, int N, int nbuf) {
-  const size_t smem = sysid_smem(T, N, nbuf).total;
-  int ctas = 0;
-  if (allow(smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, sysid_kernel,
-                                                    N * 32, smem) !=
-          cudaSuccess)
-    return -1;
-  return ctas;
+// registers, threads) for the instance knn takes
+extern "C" int rl_sysid_ctas_per_sm(int T, int N, int nbuf, int knn) {
+  const size_t smem = sysid_smem(T, N, nbuf, knn).total;
+  return knn > RL_MAX_KNN ? ctas_per_sm<true>(N, smem)
+                          : ctas_per_sm<false>(N, smem);
 }
 
 extern "C" int rl_sysid(SysidParams p, const float* sx, const float* su,
                         const int* steps, const float* xq, const float* uq,
                         float* A, float* Bm, float* C, int B, void* stream) {
   if (B <= 0) return 0;
-  const size_t smem = sysid_smem(p.T, p.N, p.nbuf).total;
-  const cudaError_t e = allow(smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  sysid_kernel<<<B, p.N * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, sx, su, steps, xq, uq, A, Bm, C);
-  return static_cast<int>(cudaGetLastError());
+  return p.knn > RL_MAX_KNN
+             ? launch<true>(p, sx, su, steps, xq, uq, A, Bm, C, B, stream)
+             : launch<false>(p, sx, su, steps, xq, uq, A, Bm, C, B, stream);
 }
 
 RL_PHASE_EXPORT(rl_sysid_phases, rl_sysid_phase, SP_N)

@@ -11,7 +11,10 @@ min-reductions over the lanes' heads pick the neighbours, the smaller
 index winning ties. The lanes split the 45 sums of the two 5x5 weighted
 normal equations (summed in the picks' order), then the entries of
 Gauss-Jordan with diagonal pivots in the reference's order; lane 0 writes
-the analytic kinematic rows. Its plain version is
+the analytic kinematic rows. A ``knn_max`` above :data:`MAX_KNN` takes a
+second instance of the kernel, which rescans the lane's candidates each
+round for the smallest (distance, index) after the last pick: the same
+picks in the same order. Its plain version is
 ``models/sysid.local_linearization_horizon``.
 
 :func:`plan` is the launch's shared-memory plan, which the kernel source
@@ -36,10 +39,10 @@ from racinglmpc_tpu_torch.utils.config import LMPCConfig
 
 MAX_SEG = 16
 MAX_N = 32        # one warp per query, at most 1024 threads
-MAX_KNN = 7       # picks a lane's list holds
+MAX_KNN = 7       # picks a lane's list holds; more take the rescan instance
+CHUNK = 32        # rounds the rescan instance records at once
 MAX_REGS = 64     # registers a thread, the kernel's launch bound
 HEADER = 160      # mbarriers, segment table (bytes)
-WARP_BYTES = 280  # a warp's scratch: MAX_KNN picks of 10 floats
 launches = cuda_build.LaunchCounter("sysid")
 
 
@@ -61,16 +64,23 @@ class Plan(NamedTuple):
     waves: int         # of the batch over the card's SMs
 
 
-def smem_bytes(T: int, N: int, nbuf: int) -> int:
+def warp_bytes(knn: int) -> int:
+    """A warp's scratch (cuda_sysid.cu:warp_floats): records of 10 floats,
+    ``MAX_KNN`` of them, or a rescan's chunk of up to ``CHUNK``."""
+    return 40 * (MAX_KNN if knn <= MAX_KNN else min(knn, CHUNK))
+
+
+def smem_bytes(T: int, N: int, nbuf: int, knn: int = MAX_KNN) -> int:
     """Dynamic shared memory of a launch (cuda_sysid.cu:sysid_smem): the
     header, ``nbuf`` lap buffers of T x 8 floats, and a warp's scratch (its
     picks of a lap, then its two augmented 5x5 systems)."""
-    return HEADER + nbuf * 32 * T + N * WARP_BYTES
+    return HEADER + nbuf * 32 * T + N * warp_bytes(knn)
 
 
 @functools.lru_cache(maxsize=64)
-def plan(K: int, T: int, N: int, B: int = 256) -> Plan:
-    """The launch for a (B, K, T) store and N queries: two lap buffers
+def plan(K: int, T: int, N: int, B: int = 256, knn: int = MAX_KNN) -> Plan:
+    """The launch for a (B, K, T) store, N queries and ``knn`` picks a lap
+    (its scratch): two lap buffers
     unless one buffer fits more CTAs per SM (or K = 1). CTAs per SM count
     shared memory (with the runtime's reservation), threads (2,048 an SM)
     and registers (at most ``MAX_REGS`` a thread); waves assume one CTA
@@ -79,7 +89,7 @@ def plan(K: int, T: int, N: int, B: int = 256) -> Plan:
     by_regs = cuda_build.REGS_PER_SM // (threads * MAX_REGS)
     best = None
     for nbuf in ((2, 1) if K > 1 else (1,)):
-        nbytes = smem_bytes(T, N, nbuf)
+        nbytes = smem_bytes(T, N, nbuf, knn)
         if nbytes > cuda_build.SMEM_PER_CTA:
             continue
         ctas = min(cuda_build.SMEM_PER_SM // (nbytes
@@ -120,19 +130,20 @@ def _launcher(lib: ctypes.CDLL):
         ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p])
 
 
-def smem_bytes_on_card(T: int, N: int, nbuf: int) -> int:
+def smem_bytes_on_card(T: int, N: int, nbuf: int, knn: int = MAX_KNN) -> int:
     """The launch's dynamic shared memory as the kernel source counts it
     (to hold :func:`plan` against)."""
     fn = cuda_build.bind(cuda_build.library(), "rl_sysid_smem_bytes",
-                         [ctypes.c_int] * 3, ctypes.c_longlong)
-    return fn(T, N, nbuf)
+                         [ctypes.c_int] * 4, ctypes.c_longlong)
+    return fn(T, N, nbuf, knn)
 
 
-def ctas_per_sm_on_card(T: int, N: int, nbuf: int) -> int:
-    """CTAs per SM by the card's own occupancy calculator."""
+def ctas_per_sm_on_card(T: int, N: int, nbuf: int, knn: int = MAX_KNN) -> int:
+    """CTAs per SM by the card's own occupancy calculator, for the instance
+    ``knn`` takes."""
     fn = cuda_build.bind(cuda_build.library(), "rl_sysid_ctas_per_sm",
-                         [ctypes.c_int] * 3)
-    return fn(T, N, nbuf)
+                         [ctypes.c_int] * 4)
+    return fn(T, N, nbuf, knn)
 
 
 # the plain version: the same function in PyTorch (same argument layout)
@@ -152,9 +163,6 @@ def local_linearization_horizon(store: sysid.LapStore, trk: Track,
     N = x_lin.shape[1]
     if N > MAX_N:
         raise ValueError(f"horizon {N} > {MAX_N}: one warp per query")
-    if cfg.knn_max > MAX_KNN:
-        raise ValueError(f"knn_max {cfg.knn_max} > {MAX_KNN}: the picks a "
-                         f"lane's list holds")
     cuda_build.expect(store.x, "store.x", (Bsz, K, T, 6))
     cuda_build.expect(store.u, "store.u", (Bsz, K, T, 2))
     cuda_build.expect(store.steps, "store.steps", (Bsz, K), torch.int32)
@@ -163,7 +171,7 @@ def local_linearization_horizon(store: sysid.LapStore, trk: Track,
     if T % 2 or store.x.data_ptr() % 16 or store.u.data_ptr() % 16:
         raise ValueError("the kernel bulk-copies each lap: T must be even "
                          "and store.x, store.u 16-byte aligned")
-    pl = plan(K, T, N, Bsz)
+    pl = plan(K, T, N, Bsz, cfg.knn_max)
     p = launch_params(K, T, N, pl.nbuf, cfg, float(dt_ctrl),
                       table if table is not None else track_table(trk))
     # one allocation, three contiguous outputs

@@ -163,31 +163,6 @@ def load(path: str) -> None:
                 package=cuda_qp.__file__, card=card)), flush=True)
 
 
-def random_qps(B: int, n: int = 30, me: int = 6, mi: int = 20,
-               seed: int = 11, device="cuda"):
-    """B random strictly convex QPs with me equalities and mi one-sided
-    inequalities (the construction of ``tests/test_pallas_qp.py``), as a
-    float32 ``QPData`` batch."""
-    import numpy as np
-
-    from racinglmpc_tpu_torch.ops import qp as qp_mod
-
-    rng = np.random.default_rng(seed)
-    rows = []
-    for _ in range(B):
-        M = rng.normal(size=(n, n))
-        P = M.T @ M / n + 0.5 * np.eye(n)
-        q = rng.normal(size=n)
-        G, F = rng.normal(size=(me, n)), rng.normal(size=(mi, n))
-        z0 = rng.normal(size=n) * 0.3
-        g, b = G @ z0, F @ z0 + np.abs(rng.normal(size=mi)) + 0.1
-        rows.append((P, q, np.vstack([F, G]),
-                     np.concatenate([-np.inf * np.ones(mi), g]),
-                     np.concatenate([b, g])))
-    return qp_mod.QPData(*(torch.tensor(np.stack(f), dtype=torch.float32,
-                                        device=device) for f in zip(*rows)))
-
-
 def save_b4(path: str) -> None:
     """B4's inputs: the LTV (cold) and LTI (warm) stages' next solves, the
     main path's LMPC FTOCPs (n = 200) and 64 random QPs of n = 30, cold and
@@ -195,6 +170,7 @@ def save_b4(path: str) -> None:
     from racinglmpc_tpu_torch.models.track import make_track
     from racinglmpc_tpu_torch.ops import qp as qp_mod
     from racinglmpc_tpu_torch.runtime import main_path, presets, stage_path
+    from racinglmpc_tpu_torch.utils.qp_cases import random_qps
 
     def keep(kw):
         return {k: (v.to_sparse() if k in SPARSE else v).cpu()

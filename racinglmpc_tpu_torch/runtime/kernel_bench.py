@@ -16,7 +16,8 @@ phase 2 does) and stores the inputs of the next step's B2 and B3 launches.
 ``--load`` runs the kernels of whichever package is imported on them, and
 on the same lap store zero-padded to T = 1024 rows (the store that
 ``LMPCConfig``'s default ``model_pts`` holds after the same laps), and
-prints one JSON line per case: the event time per launch (CUDA events
+B2 with ``knn_max = MAX_KNN + 1`` (its rescan instance) on the saved store,
+and prints one JSON line per case: the event time per launch (CUDA events
 around 20 back-to-back launches, divided by 20; median of 5 such runs), the
 device time per launch (a ``torch.profiler`` window of 20 launches), the
 host time per call (wall time of 200 calls that only enqueue) and a
@@ -180,6 +181,13 @@ def cases(path: str):
                lambda s=store: cuda_sysid.local_linearization_horizon(
                    s, trk, g["x_lin"], g["u_lin"], cfg, d["dt"],
                    table=table), KERNELS["sysid"], None)
+    # B2's rescan instance (knn_max above a lane's list) on the same store
+    wide = dataclasses.replace(cfg, knn_max=cuda_sysid.MAX_KNN + 1)
+    store = sysid.LapStore(g["store_x"], g["store_u"], g["store_steps"])
+    yield (f"sysid_T{T}_knn{wide.knn_max}",
+           lambda: cuda_sysid.local_linearization_horizon(
+               store, trk, g["x_lin"], g["u_lin"], wide, d["dt"],
+               table=table), KERNELS["sysid"], None)
 
 
 def load(path: str) -> None:

@@ -21,6 +21,7 @@ from racinglmpc_tpu_torch.ops import qp as qp_mod
 from racinglmpc_tpu_torch.runtime import experiment as exp
 from racinglmpc_tpu_torch.runtime import loop, main_path, stage_path
 from racinglmpc_tpu_torch.utils.config import SolverConfig, VehicleParams
+from racinglmpc_tpu_torch.utils.qp_cases import random_qps
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -153,20 +154,48 @@ def test_rollout_and_sysid_same_bits_twice(setup):
 def test_sysid_plan_matches_kernel_source(setup):
     cfg, _, st, _ = setup
     K, T = st.store.x.shape[1:3]
+    N = cfg.lmpc.N
     for rows in (T, 1024):
-        pl = cuda_sysid.plan(K, rows, cfg.lmpc.N)
-        assert cuda_sysid.smem_bytes_on_card(rows, cfg.lmpc.N,
-                                             pl.nbuf) == pl.nbytes
-        assert cuda_sysid.ctas_per_sm_on_card(rows, cfg.lmpc.N,
-                                              pl.nbuf) == pl.ctas_per_sm
+        for knn in (cuda_sysid.MAX_KNN, cuda_sysid.MAX_KNN + 1, 40):
+            pl = cuda_sysid.plan(K, rows, N, B, knn)
+            assert cuda_sysid.smem_bytes_on_card(rows, N, pl.nbuf,
+                                                 knn) == pl.nbytes
+            assert cuda_sysid.ctas_per_sm_on_card(rows, N, pl.nbuf,
+                                                  knn) == pl.ctas_per_sm
 
 
-def test_sysid_outside_the_kernel_limits_takes_the_plain_path(setup):
-    """knn_max = MAX_KNN + 1 with use_pallas_sysid: the wrapper would
-    raise, so the controller's step takes the plain sys-ID (no B2
-    launch), as the reference takes its XLA path."""
+@pytest.mark.parametrize("knn", [cuda_sysid.MAX_KNN + 1, 40])
+def test_sysid_knn_above_the_list_takes_the_rescan_instance(setup, knn):
+    """knn_max above a lane's list (one chunk of picks, and two): the
+    controller's step launches B2's rescan instance once, which agrees with
+    the plain version on the store and on tied rows, with equal bits over
+    two calls."""
     cfg, trk, st, x0 = setup
-    lcfg = dataclasses.replace(cfg.lmpc, knn_max=cuda_sysid.MAX_KNN + 1)
+    lcfg = dataclasses.replace(cfg.lmpc, knn_max=knn)
+    ctrl = lmpc_mod.make_lmpc(lcfg, trk, cfg.solver, 0.1)
+    assert ctrl.use_kernel_sysid
+    cuda_sysid.launches.reset()
+    _, u = ctrl.step(st, x0)
+    torch.cuda.synchronize()
+    assert cuda_sysid.launches.n == 1
+    assert bool(torch.isfinite(u).all())
+    c = dataclasses.replace(cfg, lmpc=lcfg)
+    x = st.store.x.clone()
+    src = torch.arange(x.shape[2], device="cuda") // 2
+    x[:, :, :, :3] = st.store.x[:, :, src, :3]
+    ties = sysid.LapStore(x, st.store.u[:, :, src].contiguous(),
+                          st.store.steps)
+    for store in (st.store, ties):
+        k, err = _sysid_vs_plain(c, trk, st, store)
+        assert err < 1e-3
+        assert _same_bits(k, _sysid_vs_plain(c, trk, st, store)[0])
+
+
+def test_sysid_model_pts_off_the_gate_takes_the_plain_path(setup):
+    """model_pts = 511 with use_pallas_sysid: off the reference's gate, so
+    the controller's step takes the plain sys-ID (no B2 launch)."""
+    cfg, trk, st, x0 = setup
+    lcfg = dataclasses.replace(cfg.lmpc, model_pts=511)
     assert lcfg.use_pallas_sysid
     ctrl = lmpc_mod.make_lmpc(lcfg, trk, cfg.solver, 0.1)
     assert not ctrl.use_kernel_sysid
@@ -257,8 +286,6 @@ def test_fused_admm_small_n_cold_and_warm():
     cache; against the plain version, bits equal over two calls."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    from racinglmpc_tpu_torch.runtime.admm_bench import random_qps
-
     cfg = SolverConfig(max_iter=200, polish=False, adaptive_rho=False,
                        eps_abs=3e-4, eps_rel=3e-4, use_pallas=True,
                        pallas_fused_ns=True)

@@ -1,12 +1,11 @@
 """Engagement rules of the sys-ID kernel (B2) and the rollout kernel (B3),
 on the CPU.
 
-- ``LMPCController.use_kernel_sysid`` mirrors the reference's gate
+- ``LMPCController.use_kernel_sysid`` is the reference's gate
   (``racinglmpc_tpu/controllers/lmpc.py``: float32, ``model_pts % 128 ==
-  0``) and adds the CUDA kernel's own limits (``knn_max <= MAX_KNN``,
-  ``N <= MAX_N``); a lap store of an odd row count takes the plain sys-ID
-  too. Outside them the step takes the plain sys-ID, as the reference
-  takes its XLA path, instead of reaching a wrapper that raises.
+  0``). Outside it the step takes the plain sys-ID, as the reference takes
+  its XLA path. A ``knn_max`` above ``MAX_KNN`` stays on the kernel (its
+  rescan instance), as the reference's kernel takes any ``knn_max``.
 - ``runtime/loop.use_kernel_rollout`` engages B3 for scalar vehicle
   parameters only, as the reference's fused rollout does
   (``racinglmpc_tpu/runtime/experiment.py:_batched_runner``); a batched
@@ -49,8 +48,10 @@ CLOSED_LOOP = dict(max_laps=10, max_pts=1024, model_pts=512)
     (dict(model_pts=511), False),
     (dict(model_pts=640), True),
     (dict(knn_max=cuda_sysid.MAX_KNN), True),
-    (dict(knn_max=cuda_sysid.MAX_KNN + 1), False),
-    (dict(N=cuda_sysid.MAX_N + 1), False),
+    (dict(knn_max=cuda_sysid.MAX_KNN + 1), True),
+    (dict(knn_max=40), True),
+    (dict(N=cuda_sysid.MAX_N + 1), True),    # the wrapper raises, as the
+                                             # reference's kernel does
     (dict(use_pallas_sysid=False), False),
     (dict(sysid_interpret=False), False),    # a CPU track, no interpret
 ])
@@ -68,7 +69,7 @@ def test_use_kernel_sysid_float64_takes_the_plain_path(trk):
         .use_kernel_sysid
 
 
-def _sysid_calls(monkeypatch, cfg, trk, rows):
+def _sysid_calls(monkeypatch, cfg, trk, rows=128):
     """Which sys-ID the controller's step reaches on a lap store of
     ``rows`` rows: ("kernel" or "plain",) per call."""
     calls = []
@@ -97,17 +98,16 @@ def _sysid_calls(monkeypatch, cfg, trk, rows):
     return calls
 
 
-@pytest.mark.parametrize("change, rows, want", [
-    (dict(), 128, ["kernel"]),
-    (dict(knn_max=cuda_sysid.MAX_KNN + 1), 128, ["plain"]),
-    (dict(model_pts=511), 128, ["plain"]),
-    (dict(), 127, ["plain"]),                # odd row count
+@pytest.mark.parametrize("change, want", [
+    (dict(), ["kernel"]),
+    (dict(knn_max=cuda_sysid.MAX_KNN + 1), ["kernel"]),
+    (dict(model_pts=511), ["plain"]),
 ])
-def test_sysid_call_follows_the_rule(monkeypatch, trk, change, rows, want):
+def test_sysid_call_follows_the_rule(monkeypatch, trk, change, want):
     cfg = dataclasses.replace(
         LMPCConfig(N=6, model_pts=128, use_pallas_sysid=True,
                    sysid_interpret=True), **change)
-    assert _sysid_calls(monkeypatch, cfg, trk, rows) == want
+    assert _sysid_calls(monkeypatch, cfg, trk) == want
 
 
 BATCHED = VehicleParams(m=torch.tensor([1.98, 2.3]),

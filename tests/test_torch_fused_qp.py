@@ -218,3 +218,16 @@ def test_structured_build_takes_precedence_over_fused(monkeypatch):
     tqp.solve(tq, dataclasses.replace(cfg, kkt_structured=False),
               structure=st)
     assert calls == [1, 1]
+
+
+def test_random_qps_follow_the_reference_construction():
+    """``utils.qp_cases.random_qps`` (B4's small-n inputs on the card) draws
+    the QPs of ``tests/test_pallas_qp.py:_random_qp`` from the same seed."""
+    from racinglmpc_tpu_torch.utils.qp_cases import random_qps
+
+    rng = np.random.default_rng(11)
+    ref = [_random_qp(rng=rng) for _ in range(3)]
+    got = random_qps(3, device="cpu")
+    for i, r in enumerate(ref):
+        for a, b in zip(r, got):
+            np.testing.assert_array_equal(np.asarray(a), b[i].numpy())

@@ -50,6 +50,19 @@ def test_sysid_plan_registers_hold_two_ctas():
     assert cuda_sysid.plan(4, 512, 32).ctas_per_sm == 1
 
 
+@pytest.mark.parametrize("knn, records", [(1, 7), (7, 7), (8, 8), (32, 32),
+                                          (40, 32)])
+def test_sysid_plan_scratch_of_each_instance(knn, records):
+    """A warp's scratch holds MAX_KNN records of 10 floats for the list
+    instance, and a rescan's chunk (knn, at most CHUNK) above it; the main
+    path's shapes keep one wave either way."""
+    assert cuda_sysid.warp_bytes(knn) == 40 * records
+    pl = cuda_sysid.plan(4, 512, 14, 256, knn)
+    assert pl.nbytes == (cuda_sysid.HEADER + 2 * 512 * 8 * 4
+                         + 14 * 40 * records)
+    assert pl.nbuf == 2 and pl.ctas_per_sm == 2 and pl.waves == 1
+
+
 def test_sysid_plan_long_laps_fall_back_to_one_buffer():
     one = cuda_sysid.plan(4, 2048, 14)
     assert one.nbuf == 1 and one.ctas_per_sm == 2
