@@ -62,7 +62,30 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
 7. runs the LMPC stage for 2 laps with a checkpoint, resumes it to 4 laps
    and requires the lap steps of phase 4's uninterrupted run (the LMPC
    noise does not depend on which stages ran before it);
-8. prints one JSON line of kernel summaries, the card line, and as the
+8. the mesh and giant path (``parallel/mesh.py``, ``ops/qp_sharded.py``,
+   ``controllers/giant_ftocp.py``): (a) ``make_mesh()`` on a one-rank NCCL
+   group, phase 4's LMPC run through ``run_experiment(stages="pid,lmpc",
+   mesh=...)`` with the counters reset just before and read just after:
+   its lap steps must equal phase 4's, B1, B2 and B3 must launch and no
+   scenario may stream; ``cross_scenario_metrics`` over NCCL against
+   torch's mean (1e-6 relative) / min / max (equal); (b) the giant FTOCP at
+   N = 40 in float64, assembled on the card from a noise-free PID lap (the
+   float64 NumPy plant of ``tests/oracles/ref_plant.py``), solved by the
+   sharded solver on a one-rank NCCL mesh with the settings of
+   ``tests/test_giant_ftocp.py`` and held to its criteria against the
+   float64 interior-point oracle ``tests/oracles/qp_ip.py``: relative
+   objective gap < 1e-6, feasibility < 1e-6, lambda on the simplex
+   (|sum - 1| < 1e-5, min > -1e-6), and one check chunk of the same solve
+   with the CG iteration replayed as a CUDA graph against its operations
+   launched one by one (equal x and CG count; both timed); (c) the full
+   width, N = 512 in
+   float32 (n = 5180, m = 7229) on a lap of the port's PID stage (420
+   steps, noise on), ``ShardedSolverConfig(max_iter=500)``:
+   prints the assembly seconds, the solve wall, ``iters``, ``cg_iters``,
+   the residuals, the sum and minimum of lambda and the rank's block MB,
+   and requires a finite x, ``pri_res <= 1e-2`` and
+   |sum(lambda) - 1| <= ``pri_res``;
+9. prints one JSON line of kernel summaries, the card line, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
@@ -352,6 +375,186 @@ def structured_phase(torch, qp_mod, run, trk):
     resid = float((eye - K @ X).abs().amax())
     check("structured_kinv_residual", resid < 5e-2,
           f"(max|I - K X| {resid:.2e} over {K.shape[0]} LTV FTOCPs)")
+
+
+def load_oracle(name: str):
+    """``tests/oracles/<name>.py`` of this checkout, loaded from its path
+    (an installed package named ``tests`` would shadow the directory)."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "oracles" \
+        / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_oracle_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def pid_lap(trk):
+    """One noise-free PID lap of the float64 NumPy plant (the lap of
+    ``tests/test_giant_ftocp.py``): (x (T, 6), u (T, 2)). ``trk`` on the
+    CPU."""
+    import numpy as np
+
+    ref_plant = load_oracle("ref_plant")
+
+    curv = ref_plant.np_curvature_fn(trk)
+    L = float(trk.total_len)
+    x = np.array([0.5, 0, 0, 0, 0, 0.0])
+    g = x.copy()
+    xs, us = [], []
+    for _ in range(420):
+        u = np.array([-0.6 * x[5] - 0.9 * x[3], 1.5 * (0.8 - x[0])])
+        xs.append(x.copy())
+        us.append(u.copy())
+        x, g = ref_plant.plant_step(x, g, u, curv)
+        if x[4] > L:
+            break
+    return np.asarray(xs), np.asarray(us)
+
+
+def mesh_phase(torch, exp, loop_cfg, loop_steps, trk, counters, layouts):
+    """Phase 8 (a): the one-rank NCCL mesh runs phase 4's LMPC run."""
+    import torch.distributed as dist
+
+    from racinglmpc_tpu_torch.parallel import cross_scenario_metrics, make_mesh
+
+    mesh = make_mesh()
+    check("mesh_is_one_rank_nccl_on_the_card",
+          dist.get_backend() == "nccl" and mesh.size == 1
+          and mesh.device.type == "cuda", f"({mesh})")
+    for c in counters + layouts:
+        c.reset()
+    t0 = time.time()
+    res = exp.run_experiment(loop_cfg, batch=4, stages="pid,lmpc", trk=trk,
+                             seed=0, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = {c.name: count(c) for c in counters + layouts}
+    walls = {k: round(v, 3) for k, v in res.stage_wall_s.items()}
+    print(f"[chip_smoke] mesh run (one NCCL rank, {time.time() - t0:.1f} s, "
+          f"stage walls {walls} s, lap walls "
+          f"{[round(float(v), 3) for v in res.lap_wall_s]} s): lap steps "
+          f"{res.lap_steps.tolist()} (phase 4 {loop_steps.tolist()}), "
+          f"launches {launches}")
+    check("mesh_run_equals_phase4", res.lap_steps.shape == loop_steps.shape
+          and bool((res.lap_steps == loop_steps).all()))
+    check("mesh_run_launched_b1_b2_b3",
+          all(launches[k] > 0 for k in ("admm", "sysid", "rollout")),
+          f"({launches})")
+    check("mesh_run_no_scenario_streamed",
+          launches["admm_stream"] == 0 and launches["admm_streamed"] == 0)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    vals = torch.rand(256, generator=g, device="cuda")
+    met = cross_scenario_metrics(vals, mesh)
+    rel = abs(float(met["mean"]) - float(vals.mean())) / float(vals.mean())
+    print(f"[chip_smoke] cross_scenario_metrics over NCCL: "
+          f"{ {k: float(v) for k, v in met.items()} }, torch mean "
+          f"{float(vals.mean())} (rel {rel:.2e})")
+    check("cross_scenario_metrics_equal_torch",
+          rel < 1e-6 and bool(met["min"] == vals.min())
+          and bool(met["max"] == vals.max()))
+    return mesh
+
+
+def giant_phase(torch, np, exp):
+    """Phase 8 (b), (c): the giant FTOCP through the sharded solver on a
+    one-rank NCCL mesh (the group phase 8 (a) made)."""
+    from racinglmpc_tpu_torch.controllers import giant_ftocp
+    from racinglmpc_tpu_torch.models.track import make_track
+    from racinglmpc_tpu_torch.ops import qp_sharded
+    from racinglmpc_tpu_torch.parallel import make_mesh
+    from racinglmpc_tpu_torch.utils.config import LMPCConfig
+
+    qp_ip = load_oracle("qp_ip")
+    bmesh = make_mesh(axis_name=qp_sharded.BLOCK_AXIS)
+    xs, us = pid_lap(make_track(dtype=torch.float64, device="cpu"))
+    print(f"[chip_smoke] giant FTOCP lap: {len(xs)} steps (float64 NumPy "
+          f"PID lap)")
+
+    def build(N, dtype, x, u, steps):
+        t0 = time.time()
+        g = giant_ftocp.assemble_giant_ftocp(
+            make_track(dtype=dtype, device="cuda"), x, u, steps, N=N, K=48,
+            cfg=LMPCConfig(), dtype=dtype)
+        torch.cuda.synchronize()
+        return g, time.time() - t0
+
+    def solve(g, cfg, graph=True):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sol = qp_sharded.solve_sharded(g.qp, bmesh, cfg, graph=graph)
+        torch.cuda.synchronize()
+        return sol, time.time() - t0
+
+    # (b) N = 40, float64, against the interior-point oracle
+    g, t_asm = build(40, torch.float64, torch.from_numpy(xs).cuda(),
+                     torch.from_numpy(us).cuda(), len(xs))
+    sol, wall = solve(g, qp_sharded.ShardedSolverConfig(
+        max_iter=4000, eps_abs=1e-7, eps_rel=1e-7, cg_tol=1e-10,
+        cg_max_iter=500))
+    H, q, A, l, u = (t[0].cpu().numpy() for t in g.qp)
+    eq = np.isfinite(l) & (u - l < 1e-12)
+    z_ref, *_, ok = qp_ip.solve_qp(H, q, A[eq], u[eq], A[~eq], u[~eq])
+    x = sol.x.cpu().numpy()
+
+    def obj(z):
+        return 0.5 * z @ H @ z + q @ z
+
+    gap = abs(obj(x) - obj(z_ref)) / max(abs(obj(z_ref)), 1.0)
+    feas = max(float((A @ x - u).max()), float((l - A @ x).max()))
+    d = g.dims
+    lam = x[d.off_lambda:d.off_lambda + d.K]
+    print(f"[chip_smoke] giant N=40 float64 (n {d.nz}, m {A.shape[0]}): "
+          f"assembly {t_asm:.2f} s, solve {wall:.2f} s, solved "
+          f"{bool(sol.solved)}, iters {int(sol.iters)}, cg {int(sol.cg_iters)}"
+          f", pri {float(sol.pri_res):.3e}, dua {float(sol.dua_res):.3e}; "
+          f"oracle converged {ok}, objective gap {gap:.3e}, feasibility "
+          f"{feas:.3e}, sum(lambda) {lam.sum():.9f}, min {lam.min():.3e}")
+    check("giant_n40_float64_matches_oracle",
+          ok and bool(sol.solved) and gap < 1e-6 and feas < 1e-6
+          and abs(lam.sum() - 1.0) < 1e-5 and lam.min() > -1e-6)
+    # the CG iteration replayed as a CUDA graph against its operations
+    # launched one by one: one check chunk, the same bits
+    short = qp_sharded.ShardedSolverConfig(
+        max_iter=25, eps_abs=1e-7, eps_rel=1e-7, cg_tol=1e-10,
+        cg_max_iter=500, polish=False)
+    s_g, w_g = solve(g, short)
+    s_e, w_e = solve(g, short, graph=False)
+    cg = int(s_g.cg_iters)
+    print(f"[chip_smoke] giant N=40 CG loop, {cg} iterations: CUDA graph "
+          f"{w_g:.3f} s ({w_g / cg * 1e6:.1f} us an iteration), one by one "
+          f"{w_e:.3f} s ({w_e / max(int(s_e.cg_iters), 1) * 1e6:.1f} us)")
+    check("giant_cg_graph_equals_eager",
+          cg == int(s_e.cg_iters) and bool(torch.equal(s_g.x, s_e.x)))
+
+    # (c) N = 512, float32: the full width, on a lap of the port's own PID
+    # stage (420 steps, PID and plant noise on, as the reference's sharded
+    # dry run takes it): the noise-free lap's repeated features leave some
+    # of the float32 5x5 regressions singular, in the reference as here
+    pid = exp.run_experiment(exp.ExperimentConfig(stage_steps=420), batch=1,
+                             stages="pid", seed=0)
+    g, t_asm = build(512, torch.float32, pid.pid.x[0], pid.pid.u[0],
+                     int(pid.pid.steps[0]))
+    d = g.dims
+    m = g.qp.A.shape[1]
+    blk = qp_sharded.local_blocks(g.qp, bmesh)
+    mb = (blk.P_l.numel() + blk.A_l.numel()) * blk.P_l.element_size() / 1e6
+    del blk
+    sol, wall = solve(g, qp_sharded.ShardedSolverConfig(max_iter=500))
+    x = sol.x
+    lam = x[d.off_lambda:d.off_lambda + d.K]
+    pri = float(sol.pri_res)
+    print(f"[chip_smoke] giant N=512 float32 (n {d.nz}, m {m}): assembly "
+          f"{t_asm:.2f} s, solve {wall:.2f} s, solved {bool(sol.solved)}, "
+          f"iters {int(sol.iters)}, cg {int(sol.cg_iters)}, pri {pri:.3e}, "
+          f"dua {float(sol.dua_res):.3e}, sum(lambda) "
+          f"{float(lam.sum()):.6f}, min(lambda) {float(lam.min()):.3e}, "
+          f"rank block {mb:.1f} MB")
+    check("giant_n512_dims", (d.nz, m) == (5180, 7229), f"({d.nz}, {m})")
+    check("giant_n512_float32_solution",
+          bool(torch.isfinite(x).all()) and pri <= 1e-2
+          and abs(float(lam.sum()) - 1.0) <= pri)
 
 
 def main() -> int:
@@ -723,6 +926,16 @@ def main() -> int:
           f"resumed at lap {res.resume_lap}, lap steps "
           f"{res.lap_steps.tolist()} (uninterrupted {loop_steps.tolist()})")
     check("resume_reproduces_uninterrupted", res.resume_lap == 2 and same)
+
+    # ---- phase 8: the mesh and the giant path ----------------------------
+    import numpy as np
+
+    mesh = mesh_phase(torch, exp, loop_cfg, loop_steps, trk, counters,
+                      layouts)
+    try:
+        giant_phase(torch, np, exp)
+    finally:
+        mesh.close()
 
     if FAILED:
         print(f"[chip_smoke] FAILED: {', '.join(FAILED)}", file=sys.stderr)

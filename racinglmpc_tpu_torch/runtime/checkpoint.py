@@ -8,8 +8,8 @@ manifest of path keys (``[0]/.ss/.x`` style) and one array per leaf. The
 file is written to ``<path>.tmp`` and moved into place with
 ``os.replace``, so a crash never leaves a torn checkpoint; the optional
 ``meta`` dict goes to the ``.meta.json`` sidecar (the per-lap history a
-resumed run reports). Gathering a state sharded over several processes
-waits for multi-GPU support (ROADMAP item 13).
+resumed run reports). A run sharded over a scenario mesh writes the
+gathered state from rank 0, and each rank loads its own rows (``rows``).
 """
 from __future__ import annotations
 
@@ -64,10 +64,13 @@ def save(path: str, state: Any, seed: int, lap: int,
             json.dump(meta, f)
 
 
-def load(path: str, template: Any) -> Tuple[Any, int, int]:
+def load(path: str, template: Any,
+         rows: slice | None = None) -> Tuple[Any, int, int]:
     """Read a checkpoint into the structure, dtypes and devices of
-    ``template``. Returns (state, seed, lap). Raises KeyError on a missing
-    leaf and ValueError on a shape that differs from the template's."""
+    ``template``; ``rows`` keeps those rows of every leaf's leading
+    (scenario) axis. Returns (state, seed, lap). Raises KeyError on a
+    missing leaf and ValueError on a shape that differs from the
+    template's."""
     with np.load(_npz(path), allow_pickle=False) as z:
         names = json.loads(str(z["__manifest__"]))
         arrays = {n: z[f"a{i}"] for i, n in enumerate(names)}
@@ -77,7 +80,7 @@ def load(path: str, template: Any) -> Tuple[Any, int, int]:
     for key, leaf in _leaves(template):
         if key not in arrays:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        arr = arrays[key]
+        arr = arrays[key] if rows is None else arrays[key][rows]
         if arr.shape != tuple(leaf.shape):
             raise ValueError(f"leaf {key!r}: checkpoint shape {arr.shape} "
                              f"!= template {tuple(leaf.shape)}")

@@ -15,7 +15,15 @@ The LMPC stage can write an atomic checkpoint (controller state, plant,
 lap index) every ``checkpoint_every`` laps and resume from it; a resumed
 run reproduces the uninterrupted one exactly, and its per-lap records
 cover the whole experiment (the laps before the resume point come from the
-checkpoint's meta sidecar). The device mesh is ROADMAP item 13 and raises.
+checkpoint's meta sidecar).
+
+With ``mesh`` (a :class:`~racinglmpc_tpu_torch.parallel.ScenarioMesh`)
+every rank runs its own rows of the batch on its own device: the noise is
+drawn for the whole batch and cut to the rank's rows, so every scenario
+gets the draws of the unsharded run; the LMPC lap's early exit is one
+decision over all ranks; the results are gathered, so every rank returns
+the whole batch; rank 0 writes the gathered checkpoint and every rank
+resumes from its own rows of it.
 
 Noise (PID exploration, plant noise) is drawn from ``torch.Generator``s:
 one per stage and one per LMPC lap, each seeded by :func:`stream_seed`
@@ -26,8 +34,10 @@ the others' noise unchanged. The streams cannot reproduce the reference's
 threefry bits.
 
 ``python -m racinglmpc_tpu_torch.runtime.experiment [--laps N] [--batch B]
-[--stages pid,lti,ltv,lmpc] [--seed S] [--throughput]`` runs it on the card
-and prints the lap times.
+[--stages pid,lti,ltv,lmpc] [--seed S] [--throughput] [--mesh]`` runs it on
+the card and prints the lap times; with ``--mesh`` under ``torchrun
+--nproc_per_node=G`` the scenarios are split over G cards (one NCCL rank
+each; without torchrun, one rank).
 """
 from __future__ import annotations
 
@@ -41,6 +51,7 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from racinglmpc_tpu_torch.controllers import lmpc as lmpc_mod
 from racinglmpc_tpu_torch.controllers import mpc as mpc_mod
@@ -48,6 +59,7 @@ from racinglmpc_tpu_torch.controllers.pid import make_pid_controller
 from racinglmpc_tpu_torch.models import sysid
 from racinglmpc_tpu_torch.models.dynamics import PlantState
 from racinglmpc_tpu_torch.models.track import Track, make_track, track_table
+from racinglmpc_tpu_torch.parallel import mesh as mesh_mod
 from racinglmpc_tpu_torch.runtime import checkpoint
 from racinglmpc_tpu_torch.runtime import loop as loop_mod
 from racinglmpc_tpu_torch.utils.batched import tree_map
@@ -135,8 +147,9 @@ def _stage_result(res: loop_mod.LapResult) -> StageResult:
 
 
 def run_lap_chunked(runner, ctrl_state, plant: PlantState, max_steps: int,
-                    chunk: int, pad_to: int):
-    """One lap in ``chunk``-step pieces with a host early exit.
+                    chunk: int, pad_to: int, mesh=None):
+    """One lap in ``chunk``-step pieces with a host early exit (over all
+    ranks of ``mesh``, so every rank runs the same chunks).
     ``runner(ctrl_state, plant, done, step0) -> LapResult``. Returns
     (StageResult padded to ``pad_to`` steps, ctrl_state)."""
     B = plant.x.shape[0]
@@ -148,7 +161,8 @@ def run_lap_chunked(runner, ctrl_state, plant: PlantState, max_steps: int,
         ctrl_state, plant, done = res.ctrl_state, res.plant_final, res.done
         parts.append(res)
         step0 += chunk
-        if bool(done.all()):
+        if bool(done.all() if mesh is None
+                else mesh_mod.all_ranks(done, mesh)):
             break
 
     def cat_pad(name):
@@ -179,19 +193,34 @@ def run_experiment(cfg: ExperimentConfig = ExperimentConfig(), *,
     on ``device``. ``checkpoint_dir``: the LMPC stage writes
     ``lmpc.npz`` there every ``checkpoint_every`` completed laps (and
     after the last); with ``resume`` an existing checkpoint is loaded and
-    the laps continue after its lap."""
-    if mesh is not None:
-        raise NotImplementedError("mesh: multi-GPU is ROADMAP item 13")
+    the laps continue after its lap. ``mesh``: a ``ScenarioMesh``
+    (``parallel.make_mesh``); each rank runs its rows of ``batch`` (which
+    must divide by the mesh size) on ``mesh.device``, and every rank
+    returns the whole batch."""
+    if mesh is None:
+        rows, gather, rank0 = None, (lambda t: t), True
+    elif isinstance(mesh, mesh_mod.ScenarioMesh):
+        rows, rank0 = mesh.rows(batch), mesh.rank == 0
+        device = mesh.device
+
+        def gather(t):
+            return mesh_mod.gather_scenario_tree(t, mesh)
+    else:
+        raise TypeError(f"mesh must be a ScenarioMesh, not "
+                        f"{type(mesh).__name__}")
+    local = batch if rows is None else rows.stop - rows.start
     if trk is None:
         trk = make_track(dtype=dtype, device=device)
     if vp is None:
         vp = VehicleParams()
+    elif mesh is not None:
+        vp = mesh_mod.shard_scenario_tree(vp, mesh)
     want = set(stages.split(","))
     table = track_table(trk)
     L = trk.total_len
     sim = cfg.sim
-    log = print if verbose else (lambda *a, **k: None)
-    plant0 = initial_plant(batch, dtype=dtype, device=device)
+    log = print if verbose and rank0 else (lambda *a, **k: None)
+    plant0 = initial_plant(local, dtype=dtype, device=device)
 
     walls = {}
 
@@ -203,7 +232,8 @@ def run_experiment(cfg: ExperimentConfig = ExperimentConfig(), *,
             step, state, plant0, trk=trk, vp=vp, sim_cfg=sim,
             max_steps=cfg.stage_steps, multi_lap=True, table=table,
             noise=loop_mod.gaussian_noise(batch, ctrl_dims, sim, gen, dtype,
-                                          device, ctrl_noise=ctrl_noise)))
+                                          device, ctrl_noise=ctrl_noise,
+                                          rows=rows)))
         sr.steps.cpu()          # waits for the stage's last step
         walls[("pid", "lti", "ltv")[stage]] = time.time() - t0
         return sr
@@ -234,7 +264,7 @@ def run_experiment(cfg: ExperimentConfig = ExperimentConfig(), *,
         mpc_cfg = dataclasses.replace(cfg.mpc, N=cfg.N, vt=cfg.vt,
                                       time_varying=True)
         store = sysid.add_lap(
-            sysid.make_lap_store(batch, 1, cfg.lmpc.model_pts, dtype=dtype,
+            sysid.make_lap_store(local, 1, cfg.lmpc.model_pts, dtype=dtype,
                                  device=device),
             pid_sr.x, pid_sr.u, pid_sr.steps)
         step, state = mpc_mod.make_ltv_mpc(mpc_cfg, store, trk, cfg.lmpc,
@@ -253,7 +283,7 @@ def run_experiment(cfg: ExperimentConfig = ExperimentConfig(), *,
             raise ValueError(f"lap_chunk ({cfg.lap_chunk}) must divide "
                              f"lap_max_steps ({cfg.lap_max_steps})")
         ctrl = lmpc_mod.make_lmpc(lcfg, trk, cfg.solver, sim.dt, dtype=dtype)
-        lmpc_state = lmpc_mod.init_lmpc_state(lcfg, batch, dtype=dtype,
+        lmpc_state = lmpc_mod.init_lmpc_state(lcfg, local, dtype=dtype,
                                               solver=cfg.solver,
                                               device=device)
         plant = plant0
@@ -268,7 +298,7 @@ def run_experiment(cfg: ExperimentConfig = ExperimentConfig(), *,
             ckpt_path = os.path.join(checkpoint_dir, "lmpc")
             if resume and os.path.exists(ckpt_path + ".npz"):
                 (lmpc_state, plant), saved_seed, last_lap = checkpoint.load(
-                    ckpt_path, (lmpc_state, plant))
+                    ckpt_path, (lmpc_state, plant), rows=rows)
                 if saved_seed != lmpc_seed:
                     raise ValueError(
                         "resume seed mismatch: the checkpoint was written by "
@@ -292,12 +322,12 @@ def run_experiment(cfg: ExperimentConfig = ExperimentConfig(), *,
                     lmpc_state, lcfg, pid_sr.x, pid_sr.u, pid_sr.x_glob,
                     pid_sr.steps, L)
 
-        bi = torch.arange(batch, device=device)
+        bi = torch.arange(local, device=device)
         for it in range(start_lap, cfg.n_lmpc_laps):
             t0 = time.time()
             noise = loop_mod.gaussian_noise(
                 batch, 0, sim, _generator(seed, device, LMPC, it), dtype,
-                device)
+                device, rows=rows)
 
             def runner(st, plant, done, step0, noise=noise):
                 return loop_mod.run_lap(
@@ -308,30 +338,36 @@ def run_experiment(cfg: ExperimentConfig = ExperimentConfig(), *,
             sr, lmpc_state = run_lap_chunked(runner, lmpc_state, plant,
                                              cfg.lap_max_steps,
                                              cfg.lap_chunk,
-                                             cfg.lap_max_steps)
+                                             cfg.lap_max_steps, mesh=mesh)
             shift = torch.zeros_like(sr.plant_final.x)
             shift[:, 4] = L
             plant = PlantState(x=sr.plant_final.x - shift,
                                x_glob=sr.plant_final.x_glob)
             lmpc_state = lmpc_mod.lmpc_add_trajectory(
                 lmpc_state, lcfg, sr.x, sr.u, sr.x_glob, sr.steps, L)
-            lmpc_laps.append(tree_map(lambda t: t.cpu(), sr)
-                             if cfg.offload_laps else sr)
-            lap_steps_l.append(sr.steps.cpu().numpy())
+            sr_all = gather(sr)
+            lmpc_laps.append(tree_map(lambda t: t.cpu(), sr_all)
+                             if cfg.offload_laps else sr_all)
+            lap_steps_l.append(sr_all.steps.cpu().numpy())
             lap_wall.append(time.time() - t0)    # the copy above syncs
             slot = (lmpc_state.ss.n_laps - 1).long()
             lap_times_l.append(
-                lmpc_state.ss.qfun[bi, slot, 0].cpu().numpy() * sim.dt)
+                gather(lmpc_state.ss.qfun[bi, slot, 0]).cpu().numpy()
+                * sim.dt)
             log(f"Completed lap {it}: steps={lap_steps_l[-1]}, "
                 f"time={np.round(lap_times_l[-1], 2)} s")
             if ckpt_path is not None and (
                     (it + 1) % checkpoint_every == 0
                     or it == cfg.n_lmpc_laps - 1):
-                checkpoint.save(
-                    ckpt_path, (lmpc_state, plant), lmpc_seed, it,
-                    meta={"lap_steps": [v.tolist() for v in lap_steps_l],
-                          "lap_times": [v.tolist() for v in lap_times_l],
-                          "lap_wall_s": [float(v) for v in lap_wall]})
+                whole = gather((lmpc_state, plant))
+                if rank0:
+                    checkpoint.save(
+                        ckpt_path, whole, lmpc_seed, it,
+                        meta={"lap_steps": [v.tolist() for v in lap_steps_l],
+                              "lap_times": [v.tolist() for v in lap_times_l],
+                              "lap_wall_s": [float(v) for v in lap_wall]})
+                if mesh is not None:      # the file is whole for every rank
+                    mesh.barrier()
         if lap_steps_l:
             lap_steps = np.stack(lap_steps_l, 1)
             lap_times = np.stack(lap_times_l, 1)
@@ -341,9 +377,10 @@ def run_experiment(cfg: ExperimentConfig = ExperimentConfig(), *,
             lap_times = np.zeros((batch, 0))
 
     return ExperimentResult(
-        pid=pid_sr, lti=lti_sr, ltv=ltv_sr, lmpc_laps=lmpc_laps,
-        lap_steps=lap_steps, lap_times=lap_times, lmpc_state=lmpc_state,
-        A_lti=A_lti, B_lti=B_lti,
+        pid=gather(pid_sr), lti=gather(lti_sr), ltv=gather(ltv_sr),
+        lmpc_laps=lmpc_laps, lap_steps=lap_steps, lap_times=lap_times,
+        lmpc_state=gather(lmpc_state), A_lti=gather(A_lti),
+        B_lti=gather(B_lti),
         lap_wall_s=np.asarray(lap_wall) if "lmpc" in want else None,
         resume_lap=start_lap if "lmpc" in want else 0, stage_wall_s=walls)
 
@@ -357,6 +394,9 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--throughput", action="store_true",
                    help="use the fast solver config")
+    p.add_argument("--mesh", action="store_true",
+                   help="split the scenarios over the ranks torchrun "
+                        "started, one card each")
     args = p.parse_args(argv)
     solver = (SolverConfig.throughput() if args.throughput
               else SolverConfig(max_iter=200))
@@ -364,9 +404,21 @@ def main(argv=None) -> int:
         stage_steps=450, n_lmpc_laps=args.laps, lap_max_steps=500,
         lap_chunk=125, solver=solver,
         lmpc=LMPCConfig(max_laps=args.laps + 6, max_pts=1024, model_pts=512))
+    mesh = None
+    if args.mesh:
+        mesh_mod.init_multi_host()
+        mesh = mesh_mod.make_mesh()
     t0 = time.time()
-    res = run_experiment(cfg, batch=args.batch, stages=args.stages,
-                         seed=args.seed, verbose=True)
+    try:
+        res = run_experiment(cfg, batch=args.batch, stages=args.stages,
+                             seed=args.seed, verbose=True, mesh=mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+            if dist.is_initialized():        # torchrun's group
+                dist.destroy_process_group()
+    if mesh is not None and mesh.rank != 0:
+        return 0
     print(f"wall: {time.time() - t0:.1f}s")
     if res.lap_times is not None:
         print("lap times [s] (rows=scenarios):")

@@ -42,14 +42,19 @@ class LapResult(NamedTuple):
 
 def gaussian_noise(batch: int, ctrl_dims: int, sim_cfg: SimConfig,
                    generator: torch.Generator, dtype=torch.float32,
-                   device="cuda", ctrl_noise: bool = True) -> Noise:
-    """Standard-normal draws from ``generator``, one call per step."""
+                   device="cuda", ctrl_noise: bool = True,
+                   rows: Optional[slice] = None) -> Noise:
+    """Standard-normal draws from ``generator``, one call per step, for the
+    whole ``batch``; ``rows`` keeps those scenarios' rows (a rank of a
+    scenario mesh draws what the unsharded run draws and keeps its own)."""
+    def randn(cols):
+        t = torch.randn((batch, cols), generator=generator, dtype=dtype,
+                        device=device)
+        return t if rows is None else t[rows]
+
     def draw(_t):
-        c = (torch.randn((batch, ctrl_dims), generator=generator,
-                         dtype=dtype, device=device)
-             if ctrl_noise and ctrl_dims else None)
-        p = (torch.randn((batch, 3), generator=generator, dtype=dtype,
-                         device=device) if sim_cfg.noise else None)
+        c = randn(ctrl_dims) if ctrl_noise and ctrl_dims else None
+        p = randn(3) if sim_cfg.noise else None
         return c, p
 
     return draw

@@ -362,3 +362,89 @@ def test_fused_admm_matches_plain(stages, stage):
     with pytest.raises(ValueError, match="shape"):
         cuda_qp_fused.admm_iterate_fused(*args[:5], args[5][:, :-1],
                                          *args[6:], **kw)
+
+
+# ---- the mesh and the giant path on a one-rank NCCL group ---------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs on the card")
+    from racinglmpc_tpu_torch.parallel import make_mesh
+
+    with make_mesh() as mesh:
+        yield mesh
+
+
+def test_mesh_run_equals_unsharded_and_launches_kernels(nccl_mesh):
+    """``run_experiment(mesh=...)`` on one NCCL rank equals the run
+    without a mesh lap for lap, with B1, B2 and B3 launched in it."""
+    from racinglmpc_tpu_torch.parallel import cross_scenario_metrics
+    from racinglmpc_tpu_torch.utils.config import LMPCConfig, SimConfig
+
+    cfg = exp.ExperimentConfig(
+        stage_steps=450, n_lmpc_laps=2, lap_max_steps=500, lap_chunk=125,
+        solver=SolverConfig.throughput(),
+        sim=SimConfig(use_pallas_rollout=True),
+        lmpc=LMPCConfig(max_laps=8, max_pts=1024, model_pts=512,
+                        use_pallas_sysid=True))
+    plain = exp.run_experiment(cfg, batch=4, stages="pid,lmpc", seed=0)
+    counters = (cuda_qp.launches, cuda_sysid.launches, cuda_rollout.launches)
+    for c in counters:
+        c.reset()
+    res = exp.run_experiment(cfg, batch=4, stages="pid,lmpc", seed=0,
+                             mesh=nccl_mesh)
+    assert all(c.n > 0 for c in counters), [c.n for c in counters]
+    assert (res.lap_steps == plain.lap_steps).all()
+    assert torch.equal(res.lmpc_state.ss.x, plain.lmpc_state.ss.x)
+    s = res.lmpc_laps[-1].x[:, 0, 4]
+    met = cross_scenario_metrics(s, nccl_mesh)
+    assert torch.equal(met["min"], s.min()) and torch.equal(met["max"],
+                                                           s.max())
+    assert float((met["mean"] - s.mean()).abs()) <= 1e-6 * float(s.mean())
+
+
+def test_giant_n40_float64_matches_oracle(nccl_mesh):
+    """The giant FTOCP (N = 40, float64) through the sharded solver on the
+    card, against the interior-point oracle with the criteria of
+    ``tests/test_giant_ftocp.py``."""
+    import numpy as np
+
+    from chip_smoke import load_oracle, pid_lap
+    from racinglmpc_tpu_torch.controllers import giant_ftocp
+    from racinglmpc_tpu_torch.ops import qp_sharded
+    from racinglmpc_tpu_torch.parallel import make_mesh
+    from racinglmpc_tpu_torch.utils.config import LMPCConfig
+
+    qp_ip = load_oracle("qp_ip")
+
+    bmesh = make_mesh(axis_name=qp_sharded.BLOCK_AXIS)   # the same group
+    xs, us = pid_lap(make_track(dtype=torch.float64, device="cpu"))
+    g = giant_ftocp.assemble_giant_ftocp(
+        make_track(dtype=torch.float64, device="cuda"),
+        torch.from_numpy(xs).cuda(), torch.from_numpy(us).cuda(), len(xs),
+        N=40, K=48, cfg=LMPCConfig(), dtype=torch.float64)
+    sol = qp_sharded.solve_sharded(g.qp, bmesh, qp_sharded.ShardedSolverConfig(
+        max_iter=4000, eps_abs=1e-7, eps_rel=1e-7, cg_tol=1e-10,
+        cg_max_iter=500))
+    assert bool(sol.solved)
+    H, q, A, l, u = (t[0].cpu().numpy() for t in g.qp)
+    eq = np.isfinite(l) & (u - l < 1e-12)
+    z_ref, *_, ok = qp_ip.solve_qp(H, q, A[eq], u[eq], A[~eq], u[~eq])
+    assert ok
+    x = sol.x.cpu().numpy()
+
+    def obj(z):
+        return 0.5 * z @ H @ z + q @ z
+
+    assert abs(obj(x) - obj(z_ref)) / max(abs(obj(z_ref)), 1.0) < 1e-6
+    assert max((A @ x - u).max(), (l - A @ x).max()) < 1e-6
+    lam = x[g.dims.off_lambda:g.dims.off_lambda + g.dims.K]
+    assert abs(lam.sum() - 1.0) < 1e-5 and lam.min() > -1e-6
+    # the CG iteration as a CUDA graph and launched op by op: same bits
+    short = qp_sharded.ShardedSolverConfig(
+        max_iter=25, eps_abs=1e-7, eps_rel=1e-7, cg_tol=1e-10,
+        cg_max_iter=500, polish=False)
+    a = qp_sharded.solve_sharded(g.qp, bmesh, short)
+    b = qp_sharded.solve_sharded(g.qp, bmesh, short, graph=False)
+    assert int(a.cg_iters) == int(b.cg_iters) and torch.equal(a.x, b.x)

@@ -31,6 +31,7 @@ from racinglmpc_tpu.runtime import metrics as jmetrics
 from racinglmpc_tpu.runtime import presets as jpresets
 from racinglmpc_tpu.utils import config as jc
 from racinglmpc_tpu_torch.controllers import lmpc as tlmpc
+from racinglmpc_tpu_torch.parallel import make_mesh
 from racinglmpc_tpu_torch.runtime import checkpoint
 from racinglmpc_tpu_torch.runtime import experiment as texp
 from racinglmpc_tpu_torch.runtime import metrics as tmetrics
@@ -61,8 +62,14 @@ def test_stages_pid_lti_ltv_match_reference():
                                        np.asarray(getattr(j, f)), atol=1e-6,
                                        err_msg=f"{name}.{f}")
     assert tres.lmpc_laps is None and tres.lap_wall_s is None
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(TypeError, match="ScenarioMesh"):
         texp.run_experiment(tcfg, stages="pid", device="cpu", mesh=object())
+    with make_mesh("cpu") as mesh:      # a one-rank gloo mesh runs alike
+        mres = texp.run_experiment(tcfg, batch=1, stages="pid,lti,ltv",
+                                   dtype=torch.float64, mesh=mesh)
+    for name in ("pid", "lti", "ltv"):
+        np.testing.assert_array_equal(getattr(mres, name).x.numpy(),
+                                      getattr(tres, name).x.numpy())
 
 
 SOLVERS = {

@@ -19,6 +19,7 @@ from racinglmpc_tpu.utils.config import VehicleParams as JVP
 from racinglmpc_tpu_torch.controllers.pid import make_pid_controller
 from racinglmpc_tpu_torch.models import track as ttrack
 from racinglmpc_tpu_torch.models.dynamics import PlantState
+from racinglmpc_tpu_torch.parallel import make_mesh
 from racinglmpc_tpu_torch.runtime import experiment as texp
 from racinglmpc_tpu_torch.runtime.loop import run_lap
 from racinglmpc_tpu_torch.utils.config import SimConfig, VehicleParams
@@ -134,5 +135,12 @@ def test_pid_stage_matches_reference():
                                atol=1e-7)
     np.testing.assert_allclose(tres.pid.x_glob.numpy(),
                                np.asarray(jres.pid.x_glob), atol=1e-7)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+    with pytest.raises(TypeError, match="ScenarioMesh"):
         texp.run_experiment(stages="pid", device="cpu", mesh=object())
+    with make_mesh("cpu") as mesh:      # a one-rank gloo mesh runs alike
+        mres = texp.run_experiment(
+            texp.ExperimentConfig(sim=SimConfig(noise=False), **cfg_kw),
+            batch=2, stages="pid", dtype=torch.float64, mesh=mesh)
+    np.testing.assert_array_equal(mres.pid.x.numpy(), tres.pid.x.numpy())
+    np.testing.assert_array_equal(mres.pid.steps.numpy(),
+                                  tres.pid.steps.numpy())
