@@ -36,6 +36,20 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    and from the two layouts; the shared-memory plan against the kernel
    source's count; times B1 (CUDA events, median of 20 launches after
    warm-up; its layouts in turns: resident, stream, stream, resident);
+   then B1 at the lowered iteration precisions ("bf16x3", "default"; the
+   reference's ``pallas_iter_precision``) in both layouts against the
+   plain version: bf16x3 after 16 fixed iterations within twice the
+   control (the plain version with float64 accumulation against itself:
+   bf16x3 rounds each operand to ~16 bits, so another summation order
+   moves a product by ~2^-17 and the iteration amplifies it), default
+   after one (it diverges on these FTOCPs) with the median lane within
+   1e-3 relative; two calls bit-identical; the forced rescue (full
+   precision whatever the loop's) with the plain version's flags (every
+   lane at bf16x3; at default a lane whose loop ends NaN is not rescued,
+   as in the reference) and its iteration counts on >= 95% of lanes;
+   every precision timed by events
+   around 20 back-to-back launches and on the device, at 16 fixed
+   iterations and at tolerance;
 4. runs the closed loop ``run_experiment(stages="pid,lti,ltv,lmpc",
    n_lmpc_laps=4, batch=4)`` and requires every lap finished, no NaN, a
    first->last lap improvement above 15% and no scenario streamed;
@@ -57,8 +71,12 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    kernel's Kinv on every lane, bit-identical results from two calls, and
    B4's plan (``cuda_qp_fused.plan``) against the kernel source's count and
    the card's occupancy; times both (B4 by CUDA events and in a
-   torch.profiler window); and the structured KKT inverse on the
-   throughput_max LTV stage's K: max|I - K X| < 5e-2;
+   torch.profiler window); then B4 at bf16x3 and default on both sets: the
+   prologue's outputs bit-identical to highest's, the ADMM phase against
+   the plain loop on B4's own refreshed inverse as phase 3 holds B1, two
+   calls bit-identical, every precision timed in one loop; and the
+   structured KKT inverse on the throughput_max LTV stage's K: max|I - K
+   X| < 5e-2;
 7. runs the LMPC stage for 2 laps with a checkpoint, resumes it to 4 laps
    and requires the lap steps of phase 4's uninterrupted run (the LMPC
    noise does not depend on which stages ran before it);
@@ -85,8 +103,17 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    the residuals, the sum and minimum of lambda and the rank's block MB,
    and requires a finite x, ``pri_res <= 1e-2`` and
    |sum(lambda) - 1| <= ``pri_res``;
-9. prints one JSON line of kernel summaries, the card line, and as the
-   last line ``{"ok": true, "device": {...}}``.
+9. the main path at each lowered iteration precision: ``main_path.setup``
+   with ``throughput()`` and ``pallas_iter_precision`` replaced, 20 steps
+   after the PID seed (then 5 with ``pallas_fused_ns``, B4), counters reset
+   just before and read just after: prints solves/s, the rejected share,
+   the solves not at tolerance and ADMM iterations mean / p50 / p99, and
+   requires finite states and inputs, B1 (B4) launched at that precision
+   on every step and no scenario streamed (the rejected share is the
+   card's verdict, not a gate);
+10. prints one JSON line of kernel summaries (B1 and B4 also at each
+   lowered precision, their launches from phase 9), the card line, and as
+   the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 any phase fails. It imports nothing of JAX.
@@ -146,16 +173,18 @@ def count(c):
     return c.n if hasattr(c, "n") else c.value()
 
 
-def admm_ops(torch, P, A, n, m, iters, refine, check_every):
+def admm_ops(torch, P, A, n, m, iters, refine, check_every, products=1):
     """Operations the ADMM loop's work needs on these inputs, per scenario:
     per iteration 1 + refine passes over the dense Kinv, 2 + 2 refine
     sparse products with A and refine with P (2 operations per nonzero),
-    30 (n + m) elementwise; per check (the entry check and one per chunk)
-    one product with A each way and one with P."""
+    each ``products`` times (3 at bf16x3), 30 (n + m) elementwise; per
+    check (the entry check and one per chunk) one product with A each way
+    and one with P."""
     nnz_a = (A != 0).sum((1, 2)).double()
     nnz_p = (P != 0).sum((1, 2)).double()
-    per_iter = (2.0 * n * n * (1 + refine) + 2.0 * nnz_a * (2 + 2 * refine)
-                + 2.0 * nnz_p * refine + 30.0 * (n + m))
+    per_iter = (products * (2.0 * n * n * (1 + refine)
+                            + 2.0 * nnz_a * (2 + 2 * refine)
+                            + 2.0 * nnz_p * refine) + 30.0 * (n + m))
     per_check = 4.0 * nnz_a + 2.0 * nnz_p + 20.0 * (n + m)
     iters = iters.double()
     checks = 1 + torch.ceil(iters / check_every)
@@ -260,13 +289,14 @@ def stage_runs(torch, qp_mod, counters, cuda_qp, cuda_qp_fused):
     return runs
 
 
-def fused_phase(torch, qp_mod, cuda_qp_fused, runs, trk, launches):
+def fused_phase(torch, qp_mod, cuda_qp, cuda_qp_fused, runs, trk, launches):
     """Phase 6: B4 against its plain version on the LTI stage's FTOCPs
-    (warm cache, batch 64) and the LTV stage's (cold build, batch 256).
-    Returns the kernel summary (times of the LTV set)."""
+    (warm cache, batch 64) and the LTV stage's (cold build, batch 256), at
+    every iteration precision. Returns (the variants' kernel entries, the
+    kernel summary at highest; times of the LTV set)."""
     from racinglmpc_tpu_torch.runtime import kernel_bench, stage_path
 
-    info, errs = {}, []
+    info, errs, variants = {}, [], {}
     for key, stage in (("config2_lti/fused", "lti"),
                        ("config3_ltv/fused", "ltv")):
         cfg = runs[key]["cfg"]
@@ -347,7 +377,19 @@ def fused_phase(torch, qp_mod, cuda_qp_fused, runs, trk, launches):
                            bound_by=by, ns_iters=float(
                                k.ns_iters.float().mean()),
                            ctas_per_sm=card[1])
-    return dict(name="fused_admm", route="cuda",
+        variants[stage] = b4_precisions(torch, qp_mod, cuda_qp,
+                                        cuda_qp_fused, kernel_bench, f,
+                                        cfg.solver, stage)
+    entries = [dict(
+        name=f"fused_admm_{prec}", route="cuda",
+        source="racinglmpc_tpu_torch/csrc/cuda_qp_fused.cu",
+        replaces="racinglmpc_tpu/ops/pallas_qp.py:424", launches=None,
+        max_abs_err=max(variants[st][prec]["max_abs_err"]
+                        for st in variants),
+        **{k: v for k, v in variants["ltv"][prec].items()
+           if k != "max_abs_err"},
+        library_ms=None, lti=variants["lti"][prec]) for prec in VARIANTS]
+    return entries, dict(name="fused_admm", route="cuda",
                 source="racinglmpc_tpu_torch/csrc/cuda_qp_fused.cu",
                 replaces="racinglmpc_tpu/ops/pallas_qp.py:424",
                 launches=launches, max_abs_err=max(errs),
@@ -375,6 +417,304 @@ def structured_phase(torch, qp_mod, run, trk):
     resid = float((eye - K @ X).abs().amax())
     check("structured_kinv_residual", resid < 5e-2,
           f"(max|I - K X| {resid:.2e} over {K.shape[0]} LTV FTOCPs)")
+
+
+# iteration precisions below "highest" (pallas_iter_precision), and the
+# fixed iterations of each one's check against its plain version: bf16x3
+# as the highest checks; default diverges on these FTOCPs (|x| ~ 400 after
+# one iteration, NaN by 16), so one
+VARIANTS = ("bf16x3", "default")
+FIXED_ITERS = {"bf16x3": 16, "default": 1}
+
+
+class float64_products:
+    """Inside the block the plain ADMM loop's products (``cuda_qp._vm``,
+    ``_mv``) accumulate in float64: the control of the variants' checks,
+    how far another summation order moves the plain version itself."""
+
+    def __init__(self, cuda_qp):
+        self.mod = cuda_qp
+
+    def __enter__(self):
+        vm, mv = self.saved = (self.mod._vm, self.mod._mv)
+        self.mod._vm = lambda v, M: vm(v.double(), M.double()).float()
+        self.mod._mv = lambda M, v: mv(M.double(), v.double()).float()
+
+    def __exit__(self, *exc):
+        self.mod._vm, self.mod._mv = self.saved
+
+
+def variant_agrees(torch, prec, kx, px, cx):
+    """(ok, detail, max |dx|): a kernel's x at a lowered precision against
+    its plain version's px. bf16x3 rounds each operand to ~16 bits, so a
+    last-bit difference of a float32 sum moves a product by ~2^-17 and the
+    iteration amplifies it: the kernel must lie within twice the control
+    (cx: the plain version with float64 accumulation) of px. default: x
+    finite and the median lane within 1e-3 of its max|x| (a few lanes part
+    whatever the order)."""
+    err = float((kx - px).abs().max())
+    if prec == "bf16x3":
+        ctl = float((cx - px).abs().max())
+        return (err <= 2.0 * ctl + 1e-4,
+                f"(max |dx| {err:.3e}, control {ctl:.3e})", err)
+    rel = (kx - px).abs().amax(-1) / px.abs().amax(-1).clamp(min=1e-30)
+    med = float(rel.median())
+    return (bool(torch.isfinite(kx).all()) and med < 1e-3,
+            f"(median lane relative |dx| {med:.2e}, max |dx| {err:.3e})",
+            err)
+
+
+def variant_vs_plain(torch, name, prec, kx, px, cx):
+    """Checks :func:`variant_agrees` under ``name``; returns max |dx|."""
+    ok, detail, err = variant_agrees(torch, prec, kx, px, cx)
+    check(name, ok, detail)
+    return err
+
+
+def b1_precisions(torch, cuda_qp, kernel_bench, admm_args, solver, fac,
+                  rescue_cfg, check_every):
+    """Phase 3, B1 at bf16x3 and default: against the plain version in both
+    layouts, two calls bit-identical, the forced rescue (full precision
+    whatever the main loop's), and every precision's time (events around
+    20 back-to-back launches and device time) at 16 fixed iterations and
+    at the main path's tolerance, in one loop. Returns the kernel entries
+    (launches filled in by phase 9)."""
+    times = {}
+    for prec in cuda_qp.ITER_PRECISIONS:
+        sp = dataclasses.replace(solver, pallas_iter_precision=prec)
+        f_args, f_kw = admm_args(dataclasses.replace(
+            sp, eps_abs=0.0, eps_rel=0.0, max_iter=16, check_every=16,
+            rescue_max_iter=0), fac)
+        t_args, t_kw = admm_args(sp, fac)
+        names = ("admm_main", "admm_rescue")
+        times[prec] = dict(
+            fixed16_ms=kernel_bench.event_ms(
+                lambda: cuda_qp.admm_iterate(*f_args, **f_kw)),
+            fixed16_device_ms=kernel_bench.device_ms(
+                lambda: cuda_qp.admm_iterate(*f_args, **f_kw), names),
+            ms=kernel_bench.event_ms(
+                lambda: cuda_qp.admm_iterate(*t_args, **t_kw)),
+            device_ms=kernel_bench.device_ms(
+                lambda: cuda_qp.admm_iterate(*t_args, **t_kw), names))
+    print(f"[chip_smoke] B1 by iteration precision (ms per call, 20 "
+          f"back-to-back launches; device: torch.profiler): {times}")
+    entries = []
+    for prec in VARIANTS:
+        its = FIXED_ITERS[prec]
+        sp = dataclasses.replace(solver, pallas_iter_precision=prec)
+        f_args, f_kw = admm_args(dataclasses.replace(
+            sp, eps_abs=0.0, eps_rel=0.0, max_iter=its, check_every=its,
+            rescue_max_iter=0), fac)
+        p = cuda_qp.admm_iterate_plain(*f_args, **f_kw)
+        with float64_products(cuda_qp):
+            c = cuda_qp.admm_iterate_plain(*f_args, **f_kw)
+        errs = []
+        for lay in cuda_qp.LAYOUTS:
+            k = cuda_qp.admm_iterate(*f_args, **f_kw, layout=lay)
+            errs.append(variant_vs_plain(
+                torch, f"admm_{prec}_{lay}_fixed{its}_vs_plain", prec, k[0],
+                p[0], c[0]))
+            check(f"admm_{prec}_{lay}_same_bits_twice", all(
+                bool(torch.equal(a, b)) for a, b in zip(
+                    k, cuda_qp.admm_iterate(*f_args, **f_kw, layout=lay))))
+        r_args, r_kw = admm_args(dataclasses.replace(
+            rescue_cfg, pallas_iter_precision=prec), None)
+        kr = cuda_qp.admm_iterate(*r_args, **r_kw)
+        pr = cuda_qp.admm_iterate_plain(*r_args, **r_kw)
+        same = float((kr[4] == pr[4]).float().mean())
+        flags = bool((kr[6] == pr[6]).all())
+        # the rescue starts from the main loop's iterates, which differ
+        # between kernel and plain by the amplified order noise above: a
+        # lane at a check may move by one chunk. At default the loop ends
+        # NaN on some lanes, and a NaN residual does not exceed the trigger
+        # (nor in the reference): those lanes are not rescued
+        check(f"admm_{prec}_forced_rescue",
+              flags and same >= 0.95
+              and (prec == "default" or bool(kr[6].all())),
+              f"(rescued kernel {int(kr[6].sum())} plain "
+              f"{int(pr[6].sum())} of {kr[6].numel()}, flags equal "
+              f"{flags}, iteration counts equal on {100 * same:.1f}% of "
+              f"lanes)")
+        t_args, t_kw = admm_args(sp, fac)
+        k = cuda_qp.admm_iterate(*t_args, **t_kw)
+        pms = time_ms(torch, lambda: cuda_qp.admm_iterate_plain(
+            *t_args, **t_kw), reps=3, warm=1)
+        B, n = t_args[3].shape
+        ops = float(admm_ops(torch, t_args[0], t_args[2], n,
+                             t_args[4].shape[1], k[4], t_kw["refine_steps"],
+                             check_every, products=3 if prec == "bf16x3"
+                             else 1).sum())
+        bms, by = bound_ms(nbytes(*t_args, *k[:5]), ops)
+        print(f"[chip_smoke] kernel admm_{prec} (batch {B}): "
+              f"{times[prec]['ms']:.4f} ms at tolerance (highest "
+              f"{times['highest']['ms']:.4f}; device "
+              f"{times[prec]['device_ms']}), "
+              f"{times[prec]['fixed16_ms']:.4f} ms at 16 fixed iterations "
+              f"(highest {times['highest']['fixed16_ms']:.4f}), plain "
+              f"{pms:.4f} ms, bound {bms:.4f} ms by {by}; solved "
+              f"{int(k[5].sum())}/{B}, iters mean "
+              f"{float(k[4].float().mean()):.1f}, rescued {int(k[6].sum())}")
+        entries.append(dict(
+            name=f"admm_{prec}", route="cuda",
+            source="racinglmpc_tpu_torch/csrc/cuda_qp.cu",
+            replaces="racinglmpc_tpu/ops/pallas_qp.py:391", launches=None,
+            max_abs_err=max(errs), ms=times[prec]["ms"],
+            device_ms=times[prec]["device_ms"], plain_ms=pms, bound_ms=bms,
+            bound_by=by, library_ms=None,
+            fixed16_ms=times[prec]["fixed16_ms"],
+            fixed16_device_ms=times[prec]["fixed16_device_ms"],
+            highest_ms=times["highest"]["ms"],
+            highest_device_ms=times["highest"]["device_ms"],
+            highest_fixed16_ms=times["highest"]["fixed16_ms"],
+            highest_fixed16_device_ms=times["highest"]["fixed16_device_ms"]))
+    return entries
+
+
+def b4_precisions(torch, qp_mod, cuda_qp, cuda_qp_fused, kernel_bench, f,
+                  solver, stage):
+    """Phase 6, B4 at bf16x3 and default on a stage's FTOCPs ``f``: its
+    prologue gives the bits it gives at highest, its ADMM phase is held to
+    the plain loop (B1's, ``cuda_qp.admm_iterate_plain``) on B4's own
+    refreshed inverse and pad scalars as ``variant_vs_plain`` says, two
+    calls are bit-identical, and every precision is timed at the stage
+    solver's tolerance in one loop. Returns {prec: summary}."""
+    times = {}
+    for prec in cuda_qp.ITER_PRECISIONS:
+        kw = qp_mod.fused_inputs(f.qp, dataclasses.replace(
+            solver, pallas_iter_precision=prec), f.warm, f.fac)
+        args = [kw.pop(nm) for nm in FUSED_NAMES]
+        times[prec] = dict(
+            ms=kernel_bench.event_ms(
+                lambda: cuda_qp_fused.admm_iterate_fused(*args, **kw)),
+            device_ms=kernel_bench.device_ms(
+                lambda: cuda_qp_fused.admm_iterate_fused(*args, **kw),
+                ("admm_fused", "admm_main", "admm_rescue")))
+    print(f"[chip_smoke] B4 ({stage}) by iteration precision (ms per call, "
+          f"20 back-to-back launches; device: torch.profiler): {times}")
+    out = {}
+    for prec in VARIANTS:
+        its = FIXED_ITERS[prec]
+        fixed = dataclasses.replace(
+            solver, eps_abs=0.0, eps_rel=0.0, max_iter=its, check_every=its,
+            rescue_max_iter=0, pallas_iter_precision=prec)
+        kw = qp_mod.fused_inputs(f.qp, fixed, f.warm, f.fac)
+        args = [kw.pop(nm) for nm in FUSED_NAMES]
+        k = cuda_qp_fused.admm_iterate_fused(*args, **kw)
+        kh = cuda_qp_fused.admm_iterate_fused(
+            *args, **dict(kw, iter_precision="highest"))
+        check(f"fused_admm_{prec}_{stage}_prologue_bits_as_highest", all(
+            bool(torch.equal(getattr(k, t), getattr(kh, t))) for t in (
+                "kinv", "ns_resid", "kinv_pad", "warm", "ns_iters")))
+        check(f"fused_admm_{prec}_{stage}_same_bits_twice", all(
+            bool(torch.equal(a, b)) for a, b in zip(
+                k, cuda_qp_fused.admm_iterate_fused(*args, **kw))))
+        a = dict(zip(FUSED_NAMES, args))
+
+        def loop():
+            return cuda_qp.admm_iterate_plain(
+                a["P"], k.kinv, a["A"], a["q"], a["l"], a["u"], a["rho"],
+                a["D"], a["E"], a["c"], a["x0"], a["z0"], a["y0"],
+                kinv_pad=k.kinv_pad, **kw)
+
+        p = loop()
+        with float64_products(cuda_qp):
+            c = loop()
+        err = variant_vs_plain(
+            torch, f"fused_admm_{prec}_{stage}_fixed{its}_vs_plain", prec,
+            k.x, p[0], c[0])
+        kw = qp_mod.fused_inputs(f.qp, dataclasses.replace(
+            solver, pallas_iter_precision=prec), f.warm, f.fac)
+        args = [kw.pop(nm) for nm in FUSED_NAMES]
+        k = cuda_qp_fused.admm_iterate_fused(*args, **kw)
+        pms = time_ms(torch, lambda: cuda_qp_fused.admm_iterate_fused_plain(
+            *args, **kw), reps=3, warm=1)
+        a = dict(zip(FUSED_NAMES, args))
+        B, n = a["q"].shape
+        m = a["l"].shape[1]
+        # as phase 6 counts B4 at highest, the iteration's products three
+        # times at bf16x3
+        row = (a["A"] != 0).sum(2).double()
+        k_build = (2.0 * (row * row).sum(1) + (a["P"] != 0).sum((1, 2)) + n)
+        ops = float((k_build + a["warm_ok"].double() * 2.0 * n ** 3
+                     + k.ns_iters.double() * 4.0 * n ** 3
+                     + admm_ops(torch, a["P"], a["A"], n, m, k.iters,
+                                kw["refine_steps"], solver.check_every,
+                                products=3 if prec == "bf16x3" else 1)
+                     ).sum())
+        bms, by = bound_ms(nbytes(*args, k.x, k.y, k.pri, k.dua, k.iters,
+                                  k.kinv, k.ns_resid), ops)
+        print(f"[chip_smoke] kernel fused_admm_{prec} ({stage}, batch {B}): "
+              f"{times[prec]['ms']:.4f} ms (highest "
+              f"{times['highest']['ms']:.4f}; device "
+              f"{times[prec]['device_ms']}, highest "
+              f"{times['highest']['device_ms']}), plain {pms:.4f} ms, bound "
+              f"{bms:.4f} ms by {by}; solved {int(k.solved.sum())}/{B}, ADMM "
+              f"iters mean {float(k.iters.float().mean()):.1f}, rescued "
+              f"{int(k.rescued.sum())}")
+        out[prec] = dict(max_abs_err=err, ms=times[prec]["ms"],
+                         device_ms=times[prec]["device_ms"], plain_ms=pms,
+                         bound_ms=bms, bound_by=by,
+                         highest_ms=times["highest"]["ms"],
+                         highest_device_ms=times["highest"]["device_ms"])
+    return out
+
+
+def precision_paths(torch, main_path, cuda_qp, cuda_qp_fused, counters,
+                    layouts, B, steps=20, fused_steps=5):
+    """Phase 9: the batch-256 main path at each lowered precision
+    (``throughput()`` with ``pallas_iter_precision`` replaced), ``steps``
+    steps after the PID seed, and ``fused_steps`` with B4
+    (``pallas_fused_ns``), counters reset just before each run and read
+    just after. Gates: finite states and inputs, B1 (then B4) launched at
+    that precision on every step, no scenario streamed; the rejected share
+    is the card's verdict, not a gate. Returns the launches per kernel
+    entry name."""
+    from racinglmpc_tpu_torch.utils.config import SolverConfig
+
+    launches = {}
+    for prec in VARIANTS:
+        solver = dataclasses.replace(SolverConfig.throughput(),
+                                     pallas_iter_precision=prec)
+        for fused, n_steps in ((False, steps), (True, fused_steps)):
+            tag = f"main_path_{'fused_' if fused else ''}{prec}"
+            mp, state, plant, _ = main_path.setup(
+                B, solver=dataclasses.replace(solver, pallas_fused_ns=fused))
+            plist = (cuda_qp.precision_launches,
+                     cuda_qp_fused.precision_launches)
+            for c in (*counters, *layouts, *(q for d in plist
+                                            for q in d.values())):
+                c.reset()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            ch = main_path.run_chunk(mp, state, plant, n_steps)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            lay = {c.name: count(c) for c in layouts}
+            it = ch.iters.float().cpu()
+            solves = B * n_steps
+            k_name = "fused_admm" if fused else "admm"
+            mod = cuda_qp_fused if fused else cuda_qp
+            n_prec = mod.precision_launches[prec].n
+            launches[f"{k_name}_{prec}"] = n_prec
+            print(f"[chip_smoke] {tag}: {solves / wall:.1f} solves/s (batch "
+                  f"{B}, {n_steps} steps in {wall:.3f} s), rejected "
+                  f"{int(ch.rejected)} of {solves} "
+                  f"({100 * int(ch.rejected) / solves:.2f}%), not at "
+                  f"tolerance {int(ch.unsolved)}, ADMM iters mean "
+                  f"{float(it.mean()):.2f} p50 {float(it.quantile(0.5)):.0f} "
+                  f"p99 {float(it.quantile(0.99)):.0f}, {k_name} launches "
+                  f"at {prec} {n_prec}, all {k_name} {mod.launches.n}, "
+                  f"layouts and streamed {lay}")
+            check(f"{tag}_finite", bool(torch.isfinite(ch.plant.x).all())
+                  and bool(torch.isfinite(ch.state.u_old).all()))
+            other = cuda_qp.launches.n if fused else \
+                cuda_qp_fused.launches.n
+            check(f"{tag}_{k_name}_every_step",
+                  n_prec == n_steps and other == 0, f"({n_prec})")
+            check(f"{tag}_no_scenario_streamed",
+                  lay["admm_stream"] == 0 and lay["admm_streamed"] == 0
+                  and lay["fused_admm_streamed"] == 0, f"({lay})")
+    return launches
 
 
 def load_oracle(name: str):
@@ -858,6 +1198,9 @@ def main() -> int:
         launches=launches["admm"], max_abs_err=max(err_b1.values()), ms=ms,
         device_ms=dms, plain_ms=pms, bound_ms=bms, bound_by=by,
         library_ms=None, resident_ms=ms, stream_ms=stream_ms))
+    variants = b1_precisions(torch, cuda_qp, kernel_bench, admm_args,
+                             cfg.solver, state.fac, rescue_cfg,
+                             cfg.solver.check_every)
     for kinfo in kernels:
         print(f"[chip_smoke] kernel {kinfo['name']}: {kinfo['ms']:.4f} ms "
               f"(device {kinfo['device_ms']}, plain "
@@ -905,8 +1248,11 @@ def main() -> int:
                          if r["fused"])
 
     # ---- phase 6: B4 against its plain version; structured inverse -------
-    kernels.append(fused_phase(torch, qp_mod, cuda_qp_fused, runs, trk,
-                               fused_launches))
+    fused_variants, fused = fused_phase(torch, qp_mod, cuda_qp,
+                                        cuda_qp_fused, runs, trk,
+                                        fused_launches)
+    kernels.append(fused)
+    variants += fused_variants
     structured_phase(torch, qp_mod, runs["config3_ltv/max"], trk)
 
     # ---- phase 7: checkpoint and resume -----------------------------------
@@ -936,6 +1282,13 @@ def main() -> int:
         giant_phase(torch, np, exp)
     finally:
         mesh.close()
+
+    # ---- phase 9: the main path at each lowered iteration precision ------
+    prec_launches = precision_paths(torch, main_path, cuda_qp, cuda_qp_fused,
+                                    counters, layouts, B)
+    for kinfo in variants:
+        kinfo["launches"] = prec_launches[kinfo["name"]]
+    kernels += variants
 
     if FAILED:
         print(f"[chip_smoke] FAILED: {', '.join(FAILED)}", file=sys.stderr)

@@ -51,10 +51,20 @@
 // workspace, in a launch of their own (beside the ADMM core's state the
 // core spilled); a second launch copies the inverse into the slot and runs
 // their chunks on the resident core. Other lanes' CTAs return at once.
+// Iteration precision: the main kernels are instantiated at each of
+// PREC_HIGHEST, PREC_BF16X3 and PREC_DEFAULT (the reference's
+// pallas_iter_precision "highest", "bf16x3", "default"); only the products
+// of the main loop's iterations change (qp_common.cuh: the *_lp passes,
+// the operands split on the fly, three float32 accumulators an output at
+// bf16x3), and the rescue always iterates at PREC_HIGHEST. At PREC_HIGHEST
+// the loop is the code it was before the variants came. bf16x3 triples the
+// iteration's multiply-adds and adds the splits, on the CUDA cores: a
+// float32 FMA is already exact in one pass here, so no variant is faster.
 #include "qp_common.cuh"
 
 // (NT, 1): without the 1, ptxas may cap this kernel at 64 registers and
 // spill inside the streamed products (measured: twice the time)
+template <int PR>
 __global__ void __launch_bounds__(NT, 1)
 admm_main_stream(const QPParams p, const float* P_, const float* Kinv_,
                  const float* A_, const float* nvecs, const float* vecs,
@@ -66,11 +76,13 @@ admm_main_stream(const QPParams p, const float* P_, const float* Kinv_,
   const DenseOps op{P_ + (size_t)b * n * n, A_ + (size_t)b * m * n,
                     Kinv_ + (size_t)b * n * n, n, m};
   load_state(p, c, b, nvecs, vecs, x0, z0, y0);
-  admm_loop(p, c, b, op, cinv[b], true, xo, zo, yo, stats, flags, streamed);
+  admm_loop<PR>(p, c, b, op, cinv[b], true, xo, zo, yo, stats, flags,
+                streamed);
 }
 
 // One CTA per SM by registers (~100 of them for 512 threads): a bound of
 // two CTAs would cap them at 64 and spill the products' partial sums.
+template <int PR>
 __global__ void __launch_bounds__(NT, 1)
 admm_main_resident(const QPParams p, const float* P_, const float* Kinv_,
                    const float* A_, const float* nvecs, const float* vecs,
@@ -98,11 +110,11 @@ admm_main_resident(const QPParams p, const float* P_, const float* Kinv_,
   mbar_wait(bar, 0);
   PHASE(PH_WAIT)
   if (fits)
-    admm_loop(p, c, b, SparseOps(s, K, n, m), cinv[b], false, xo, zo, yo,
-              stats, flags, streamed);
+    admm_loop<PR>(p, c, b, SparseOps(s, K, n, m), cinv[b], false, xo, zo,
+                  yo, stats, flags, streamed);
   else
-    admm_loop(p, c, b, DenseOps{P, A, K, n, m}, cinv[b], true, xo, zo, yo,
-              stats, flags, streamed);
+    admm_loop<PR>(p, c, b, DenseOps{P, A, K, n, m}, cinv[b], true, xo, zo,
+                  yo, stats, flags, streamed);
 }
 
 // The rescue's Newton-Schulz prologue, on the lanes flags[:, 2] marks:
@@ -211,16 +223,18 @@ admm_rescue(const QPParams p, const float* P_, const float* A_,
     for (size_t e = tid; e < (size_t)n * n; e += NT) slot[e] = X[e];
     __syncthreads();
     if (fits)
-      run_chunks(p, c, SparseOps(s, slot, n, m), c_inv, p.rescue_max_iter,
-                 it_main, p.rescue_exit, rdone, iters, pri, dua);
+      run_chunks<PREC_HIGHEST>(p, c, SparseOps(s, slot, n, m), c_inv,
+                               p.rescue_max_iter, it_main, p.rescue_exit,
+                               rdone, iters, pri, dua);
     else
-      run_chunks(p, c, DenseOps{P, A, slot, n, m}, c_inv,
-                 p.rescue_max_iter, it_main, p.rescue_exit, rdone, iters,
-                 pri, dua);
+      run_chunks<PREC_HIGHEST>(p, c, DenseOps{P, A, slot, n, m}, c_inv,
+                               p.rescue_max_iter, it_main, p.rescue_exit,
+                               rdone, iters, pri, dua);
   } else {
     __syncthreads();
-    run_chunks(p, c, DenseOps{P, A, X, n, m}, c_inv, p.rescue_max_iter,
-               it_main, p.rescue_exit, rdone, iters, pri, dua);
+    run_chunks<PREC_HIGHEST>(p, c, DenseOps{P, A, X, n, m}, c_inv,
+                             p.rescue_max_iter, it_main, p.rescue_exit,
+                             rdone, iters, pri, dua);
   }
   store_iterates(p, c, b, xo, zo, yo);
   if (tid == 0) {
@@ -240,18 +254,32 @@ extern "C" long long rl_admm_smem_bytes(int n, int m, int nnz_cap,
   return (long long)(ctx_floats(n, m) * sizeof(float));
 }
 
-static const void* main_kernel(int layout) {
+template <int PR>
+static const void* main_kernel_at(int layout) {
   return layout == LAYOUT_RESIDENT
-             ? reinterpret_cast<const void*>(admm_main_resident)
-             : reinterpret_cast<const void*>(admm_main_stream);
+             ? reinterpret_cast<const void*>(admm_main_resident<PR>)
+             : reinterpret_cast<const void*>(admm_main_stream<PR>);
 }
 
-// CTAs per SM the card runs of the main kernel in a layout (the
-// occupancy calculator: shared memory, registers and threads); < 0 on an
-// error
-extern "C" int rl_admm_ctas_per_sm(int n, int m, int nnz_cap, int layout) {
+// the main kernel's instantiation in a layout at an iteration precision
+// (nullptr for an unknown precision)
+static const void* main_kernel(int layout, int prec) {
+  switch (prec) {
+    case PREC_HIGHEST: return main_kernel_at<PREC_HIGHEST>(layout);
+    case PREC_BF16X3: return main_kernel_at<PREC_BF16X3>(layout);
+    case PREC_DEFAULT: return main_kernel_at<PREC_DEFAULT>(layout);
+    default: return nullptr;
+  }
+}
+
+// CTAs per SM the card runs of the main kernel in a layout at an
+// iteration precision (the occupancy calculator: shared memory, registers
+// and threads); < 0 on an error
+extern "C" int rl_admm_ctas_per_sm(int n, int m, int nnz_cap, int layout,
+                                   int prec) {
   const size_t smem = rl_admm_smem_bytes(n, m, nnz_cap, layout);
-  const void* fn = main_kernel(layout);
+  const void* fn = main_kernel(layout, prec);
+  if (!fn) return -1;
   if (set_smem(fn, smem)) return -1;
   int ctas = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, NT, smem) !=
@@ -260,25 +288,50 @@ extern "C" int rl_admm_ctas_per_sm(int n, int m, int nnz_cap, int layout) {
   return ctas;
 }
 
+template <int PR>
+static void launch_main(const QPParams& p, const float* P, const float* Kinv,
+                        const float* A, const float* nvecs,
+                        const float* vecs, const float* cinv,
+                        const float* x0, const float* z0, const float* y0,
+                        float* xo, float* zo, float* yo, float* stats,
+                        int* flags, int* streamed, int layout, int B,
+                        size_t smem, cudaStream_t st) {
+  if (layout == LAYOUT_RESIDENT)
+    admm_main_resident<PR><<<B, NT, smem, st>>>(p, P, Kinv, A, nvecs, vecs,
+                                                cinv, x0, z0, y0, xo, zo,
+                                                yo, stats, flags, streamed);
+  else
+    admm_main_stream<PR><<<B, NT, smem, st>>>(p, P, Kinv, A, nvecs, vecs,
+                                              cinv, x0, z0, y0, xo, zo, yo,
+                                              stats, flags, streamed);
+}
+
+// the main launch in a layout, its loop at iteration precision prec
 extern "C" int rl_admm(QPParams p, const float* P, const float* Kinv,
                        const float* A, const float* nvecs, const float* vecs,
                        const float* cinv, const float* x0, const float* z0,
                        const float* y0, float* xo, float* zo, float* yo,
-                       float* stats, int* flags, int* streamed, int layout,
-                       int B, void* stream) {
+                       float* stats, int* flags, int* streamed, int prec,
+                       int layout, int B, void* stream) {
   if (B <= 0) return 0;
+  const void* fn = main_kernel(layout, prec);
+  if (!fn) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = rl_admm_smem_bytes(p.n, p.m, p.nnz_cap, layout);
-  int e = set_smem(main_kernel(layout), smem);
+  int e = set_smem(fn, smem);
   if (e) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (layout == LAYOUT_RESIDENT)
-    admm_main_resident<<<B, NT, smem, st>>>(p, P, Kinv, A, nvecs, vecs, cinv,
-                                            x0, z0, y0, xo, zo, yo, stats,
-                                            flags, streamed);
+  if (prec == PREC_HIGHEST)
+    launch_main<PREC_HIGHEST>(p, P, Kinv, A, nvecs, vecs, cinv, x0, z0, y0,
+                              xo, zo, yo, stats, flags, streamed, layout, B,
+                              smem, st);
+  else if (prec == PREC_BF16X3)
+    launch_main<PREC_BF16X3>(p, P, Kinv, A, nvecs, vecs, cinv, x0, z0, y0,
+                             xo, zo, yo, stats, flags, streamed, layout, B,
+                             smem, st);
   else
-    admm_main_stream<<<B, NT, smem, st>>>(p, P, Kinv, A, nvecs, vecs, cinv,
-                                          x0, z0, y0, xo, zo, yo, stats,
-                                          flags, streamed);
+    launch_main<PREC_DEFAULT>(p, P, Kinv, A, nvecs, vecs, cinv, x0, z0, y0,
+                              xo, zo, yo, stats, flags, streamed, layout, B,
+                              smem, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,7 +13,9 @@
 //     Xj when the first ends non-finite or above 50 ns_tol); the pad scalar
 //     xp (1 on the warm path, 1/max(cj, 1) on the Jacobi path) follows its
 //     own Newton-Schulz sequence and enters max|R| as |1 - xp|;
-//   then B1's ADMM loop on the refreshed X. Lanes that need the
+//   then B1's ADMM loop on the refreshed X, its iterations at the
+//   precision the caller asks (B1's instantiations; "bf16x3" splits the
+//   refreshed X). Lanes that need the
 //   rho-escalation rescue are handled by B1's rescue launch
 //   (cuda_qp.cu:admm_rescue), given the refreshed X and its pad scalars.
 // Outputs: x, z, y, (pri, dua), (iters, done, needs-rescue, streamed), the
@@ -144,10 +146,11 @@ extern "C" int rl_admm(QPParams p, const float* P, const float* Kinv,
                        const float* A, const float* nvecs, const float* vecs,
                        const float* cinv, const float* x0, const float* z0,
                        const float* y0, float* xo, float* zo, float* yo,
-                       float* stats, int* flags, int* streamed, int layout,
-                       int B, void* stream);
+                       float* stats, int* flags, int* streamed, int prec,
+                       int layout, int B, void* stream);
 
-// the prologue, then B1's ADMM loop on the refreshed inverse (kinv_out)
+// the prologue, then B1's ADMM loop on the refreshed inverse (kinv_out) at
+// iteration precision prec
 extern "C" int rl_admm_fused(QPParams p, const float* P, const float* A,
                              const float* kinv0, const int* warm_ok,
                              const float* nvecs, const float* vecs,
@@ -156,7 +159,7 @@ extern "C" int rl_admm_fused(QPParams p, const float* P, const float* A,
                              float* zo, float* yo, float* stats, int* flags,
                              float* kinv_out, float* ns_out, float* kpad_out,
                              int* ns_info, float* ws, int* streamed,
-                             int layout, int B, void* stream) {
+                             int prec, int layout, int B, void* stream) {
   if (B <= 0) return 0;
   const size_t smem = prologue_smem(p.n, p.m);
   int e = set_smem(reinterpret_cast<const void*>(admm_fused_prologue), smem);
@@ -168,7 +171,7 @@ extern "C" int rl_admm_fused(QPParams p, const float* P, const float* A,
   e = static_cast<int>(cudaGetLastError());
   if (e) return e;
   return rl_admm(p, P, kinv_out, A, nvecs, vecs, cinv, x0, z0, y0, xo, zo,
-                 yo, stats, flags, streamed, layout, B, stream);
+                 yo, stats, flags, streamed, prec, layout, B, stream);
 }
 
 #ifdef QP_PHASES

@@ -7,7 +7,12 @@
 // product core and passes over a global workspace).
 // "v.M" products contract M's rows (v @ M, as the Pallas kernels' row
 // vectors do); "M v" products contract its columns.
+// The main loop is instantiated at an iteration precision (PREC_*): the
+// products of one iteration run in float32 ("highest"), as three bf16
+// products ("bf16x3") or as one bf16 pass ("default"); the residual checks,
+// the rescue and the Newton-Schulz prologue always run in float32.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -32,6 +37,10 @@ struct QPParams {
 #define FULL 0xffffffffu
 
 enum { LAYOUT_STREAM = 0, LAYOUT_RESIDENT = 1 };
+
+// iteration precisions (ops/cuda_qp.py:ITER_PRECISIONS; the reference's
+// SolverConfig.pallas_iter_precision)
+enum { PREC_HIGHEST = 0, PREC_BF16X3 = 1, PREC_DEFAULT = 2 };
 
 // Phase clocks, compiled in only with -DQP_PHASES (runtime/admm_bench.py
 // --phases): thread 0 of scenario 0 adds the SM cycles since its last mark
@@ -610,25 +619,276 @@ static __device__ __forceinline__ void cols_pass2(const SegSet c1, G1 g1,
   __syncthreads();
 }
 
+// ---------------------------------------------------------------------------
+// the iteration's products at a lowered precision (PR = PREC_BF16X3 or
+// PREC_DEFAULT), split on the fly as the operands are read: a matrix entry
+// costs two roundings and a subtraction, a vector entry the same where it
+// is gathered, or nothing where the loop split it into a packed word once
+// per product (pack_split). Every output keeps its float32 accumulators
+// (Acc3), each one fmaf chain in the product's k order; products of bf16
+// values are exact in float32. The sparse passes' loops are not unrolled:
+// unrolled, the bf16x3 resident instantiation spilled (-Xptxas -v).
+// ---------------------------------------------------------------------------
+
+// x rounded to bfloat16, nearest even (the reference's astype(bfloat16)),
+// as a float
+static __device__ __forceinline__ float bf16_rn(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// bf16x3: hi = bf16(x), lo = bf16(x - hi); default: hi = bf16(x), lo = 0
+template <int PR>
+static __device__ __forceinline__ void bf16_split(float x, float& hi,
+                                                  float& lo) {
+  hi = bf16_rn(x);
+  lo = PR == PREC_BF16X3 ? bf16_rn(__fsub_rn(x, hi)) : 0.f;
+}
+
+// the split of x in one 32-bit word: hi's 16 high bits, then lo's (both
+// are bf16 values: their low 16 bits are zero); read back by
+// unpack_split
+template <int PR>
+static __device__ __forceinline__ float pack_split(float x) {
+  float hi, lo;
+  bf16_split<PR>(x, hi, lo);
+  return __uint_as_float((__float_as_uint(hi) & 0xffff0000u) |
+                         (__float_as_uint(lo) >> 16));
+}
+
+static __device__ __forceinline__ void unpack_split(float w, float& hi,
+                                                    float& lo) {
+  const unsigned u = __float_as_uint(w);
+  hi = __uint_as_float(u & 0xffff0000u);
+  lo = __uint_as_float(u << 16);
+}
+
+// The accumulators of one output: hh, hl, lh = v_hi M_hi, v_hi M_lo,
+// v_lo M_hi (default: hh alone, over the rounded operands), combined as
+// hh + (hl + lh), the reference's association, pinned.
+template <int PR>
+struct Acc3 {
+  float hh = 0.f, hl = 0.f, lh = 0.f;
+  // v split as (vh, vl), the matrix entry m split here
+  __device__ __forceinline__ void add(float vh, float vl, float m) {
+    float mh, ml;
+    bf16_split<PR>(m, mh, ml);
+    hh = fmaf(vh, mh, hh);
+    if (PR == PREC_BF16X3) {
+      hl = fmaf(vh, ml, hl);
+      lh = fmaf(vl, mh, lh);
+    }
+  }
+  // both operands split here
+  __device__ __forceinline__ void add(float v, float m) {
+    float vh, vl;
+    bf16_split<PR>(v, vh, vl);
+    add(vh, vl, m);
+  }
+  // this chain's sum with another's (this + o, per accumulator)
+  __device__ __forceinline__ void merge(const Acc3& o) {
+    hh = __fadd_rn(hh, o.hh);
+    hl = __fadd_rn(hl, o.hl);
+    lh = __fadd_rn(lh, o.lh);
+  }
+  // the xor tree of matvec over a warp's lanes, per accumulator
+  __device__ __forceinline__ void warp_sum() {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      hh += __shfl_xor_sync(FULL, hh, off);
+      if (PR == PREC_BF16X3) {
+        hl += __shfl_xor_sync(FULL, hl, off);
+        lh += __shfl_xor_sync(FULL, lh, off);
+      }
+    }
+  }
+  __device__ __forceinline__ float sum() const {
+    return PR == PREC_BF16X3 ? __fadd_rn(hh, __fadd_rn(hl, lh)) : hh;
+  }
+};
+
+// The v.M products' two row groups, merged as vecmat adds its partials
+// (group 0's + group 1's, per accumulator): group 1 hands its sums to
+// group 0 through part (two floats a column), in two rounds at bf16x3.
+// Every thread calls it; group 0 ends with the merged sums.
+template <int PR>
+static __device__ __forceinline__ void merge_groups(Acc3<PR>& a,
+                                                    float* part) {
+  static_assert(GSPLIT == 2, "two row groups");
+  const int g = threadIdx.x / 256, jl = threadIdx.x % 256;
+  if (g == 1) {
+    part[jl] = a.hh;
+    part[256 + jl] = a.hl;
+  }
+  __syncthreads();
+  if (g == 0) {
+    a.hh = __fadd_rn(a.hh, part[jl]);
+    a.hl = __fadd_rn(a.hl, part[256 + jl]);
+  }
+  if (PR == PREC_BF16X3) {
+    __syncthreads();
+    if (g == 1) part[jl] = a.lh;
+    __syncthreads();
+    if (g == 0) a.lh = __fadd_rn(a.lh, part[jl]);
+  }
+}
+
+// vecmat at PR: v (shared, float32) split as it is read
+template <int PR>
+static __device__ __forceinline__ void vecmat_lp(const float* v,
+                                                 const float* M, int R,
+                                                 int C, float* out,
+                                                 float* part) {
+  const int g = threadIdx.x / 256, jl = threadIdx.x % 256;
+  const int i0 = (R * g) / GSPLIT, i1 = (R * (g + 1)) / GSPLIT;
+  for (int j0 = 0; j0 < C; j0 += 256) {
+    const int j = j0 + jl;
+    Acc3<PR> a;
+    if (j < C) {
+      const float* col = M + j;
+#pragma unroll 4
+      for (int i = i0; i < i1; ++i) a.add(v[i], col[(size_t)i * C]);
+    }
+    merge_groups(a, part);
+    if (g == 0 && j < C) out[j] = a.sum();
+    __syncthreads();
+  }
+}
+
+// vecmat4 at PR: vw holds v's packed splits (pack_split), M in shared
+// memory; one entry at a time (with four in flight, read as a float4, the
+// bf16x3 instantiation spilled: -Xptxas -v)
+template <int PR, class Epi>
+static __device__ __forceinline__ void vecmat4_lp(const float* vw,
+                                                  const float* M, int R,
+                                                  int C, float* part,
+                                                  Epi epi) {
+  const int g = threadIdx.x / 256, jl = threadIdx.x % 256;
+  const int i0 = (R * g) / GSPLIT, i1 = (R * (g + 1)) / GSPLIT;
+  for (int j0 = 0; j0 < C; j0 += 256) {
+    const int j = j0 + jl;
+    Acc3<PR> a;
+    if (j < C) {
+      const float* col = M + j;
+      float vh, vl;
+      for (int i = i0; i < i1; ++i) {
+        unpack_split(vw[i], vh, vl);
+        a.add(vh, vl, col[(size_t)i * C]);
+      }
+    }
+    merge_groups(a, part);
+    if (g == 0 && j < C) epi(j, a.sum());
+    __syncthreads();
+  }
+}
+
+// matvec at PR: one warp per row, lane = column mod 32, then the xor tree
+template <int PR>
+static __device__ __forceinline__ void matvec_lp(const float* M,
+                                                 const float* v, int R,
+                                                 int C, float* out) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = w; i < R; i += NT / 32) {
+    const float* row = M + (size_t)i * C;
+    Acc3<PR> a;
+    for (int j = lane; j < C; j += 32) a.add(v[j], row[j]);
+    a.warp_sum();
+    if (lane == 0) out[i] = a.sum();
+  }
+  __syncthreads();
+}
+
+// rows_pass at PR: a thread per row summing its entries in column order,
+// a warp per listed long row (lane = entry mod 32, then the xor tree)
+template <int PR, class G, class E>
+static __device__ __forceinline__ void rows_pass_lp(const SegSet r, G g,
+                                                    E e) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < r.S; i += NT) {
+    const int k0 = r.ptr[i], k1 = r.ptr[i + 1];
+    if (r.nlong == 0 || k1 - k0 <= LONG_ROW) {
+      Acc3<PR> a;
+#pragma unroll 1
+      for (int k = k0; k < k1; ++k) a.add(g(r.idx[k]), r.val[k]);
+      e(i, a.sum());
+    }
+  }
+  const int w = NT / 32 - 1 - (tid >> 5), lane = tid & 31;
+  for (int q = w; q < r.nlong; q += NT / 32) {
+    const int i = r.lng[q];
+    Acc3<PR> a;
+#pragma unroll 1
+    for (int k = r.ptr[i] + lane; k < r.ptr[i + 1]; k += 32)
+      a.add(g(r.idx[k]), r.val[k]);
+    a.warp_sum();
+    if (lane == 0) e(i, a.sum());
+  }
+  __syncthreads();
+}
+
+// col_dot at PR: the rows below half and from half on (each column's rows
+// are sorted) summed apart, then merged
+template <int PR, class Gth>
+static __device__ __forceinline__ float col_dot_lp(const float* val,
+                                                   const short* idx, int k0,
+                                                   int k1, int half,
+                                                   Gth gather) {
+  Acc3<PR> a0, a1;
+  int k = k0;
+#pragma unroll 1
+  for (; k < k1 && idx[k] < half; ++k) a0.add(gather(idx[k]), val[k]);
+#pragma unroll 1
+  for (; k < k1; ++k) a1.add(gather(idx[k]), val[k]);
+  a0.merge(a1);
+  return a0.sum();
+}
+
+template <int PR, class G, class E>
+static __device__ __forceinline__ void cols_pass_lp(const SegSet c, G g,
+                                                    E e) {
+  for (int j = threadIdx.x; j < c.S; j += NT)
+    e(j, col_dot_lp<PR>(c.val, c.idx, c.ptr[j], c.ptr[j + 1], c.half, g));
+  __syncthreads();
+}
+
+template <int PR, class G1, class G2, class E>
+static __device__ __forceinline__ void cols_pass2_lp(const SegSet c1, G1 g1,
+                                                     const SegSet c2, G2 g2,
+                                                     E e) {
+  for (int j = threadIdx.x; j < c1.S; j += NT)
+    e(j,
+      col_dot_lp<PR>(c1.val, c1.idx, c1.ptr[j], c1.ptr[j + 1], c1.half, g1),
+      col_dot_lp<PR>(c2.val, c2.idx, c2.ptr[j], c2.ptr[j + 1], c2.half, g2));
+  __syncthreads();
+}
+
 // The two layouts of the ADMM core's products. Av: A x (m outputs); vA,
 // vP, vK: v.A, v.P, v.Kinv (n outputs). Each ends with a __syncthreads.
 
 // stream: dense P, A and Kinv wherever they live (global memory; Kinv also
-// in the shared slot, for a scenario whose nonzeros overflow the cap)
+// in the shared slot, for a scenario whose nonzeros overflow the cap); at
+// an iteration precision PR (the checks: PREC_HIGHEST)
 struct DenseOps {
   const float *P, *A, *K;
   int n, m;
+  template <int PR = PREC_HIGHEST>
   __device__ void Av(const float* x, float* out) const {
-    matvec(A, x, m, n, out);
+    if constexpr (PR == PREC_HIGHEST) matvec(A, x, m, n, out);
+    else matvec_lp<PR>(A, x, m, n, out);
   }
+  template <int PR = PREC_HIGHEST>
   __device__ void vA(const float* v, float* out, float* part) const {
-    vecmat(v, A, m, n, out, part);
+    if constexpr (PR == PREC_HIGHEST) vecmat(v, A, m, n, out, part);
+    else vecmat_lp<PR>(v, A, m, n, out, part);
   }
+  template <int PR = PREC_HIGHEST>
   __device__ void vP(const float* v, float* out, float* part) const {
-    vecmat(v, P, n, n, out, part);
+    if constexpr (PR == PREC_HIGHEST) vecmat(v, P, n, n, out, part);
+    else vecmat_lp<PR>(v, P, n, n, out, part);
   }
+  template <int PR = PREC_HIGHEST>
   __device__ void vK(const float* v, float* out, float* part) const {
-    vecmat(v, K, n, n, out, part);
+    if constexpr (PR == PREC_HIGHEST) vecmat(v, K, n, n, out, part);
+    else vecmat_lp<PR>(v, K, n, n, out, part);
   }
 };
 
@@ -725,29 +985,30 @@ static __device__ __forceinline__ void load_state(const QPParams& p, Ctx& c, int
   __syncthreads();
 }
 
-template <class Ops>
+// One ADMM iteration, its products at PR (stream layout: DenseOps)
+template <int PR, class Ops>
 static __device__ __forceinline__ void one_iter(const QPParams& p, Ctx& c, const Ops& op) {
   const int n = p.n, m = p.m, tid = threadIdx.x;
   for (int i = tid; i < m; i += NT) c.tm1[i] = c.rho[i] * c.z[i] - c.y[i];
   __syncthreads();
-  op.vA(c.tm1, c.tn1, c.part);
+  op.template vA<PR>(c.tm1, c.tn1, c.part);
   for (int j = tid; j < n; j += NT) c.rhs[j] = p.sigma * c.x[j] - c.q[j] + c.tn1[j];
   __syncthreads();
-  op.vK(c.rhs, c.xt, c.part);
+  op.template vK<PR>(c.rhs, c.xt, c.part);
   for (int r = 0; r < p.refine_steps; ++r) {
-    op.Av(c.xt, c.tm1);
+    op.template Av<PR>(c.xt, c.tm1);
     for (int i = tid; i < m; i += NT) c.tm1[i] *= c.rho[i];
     __syncthreads();
-    op.vP(c.xt, c.tn1, c.part);
-    op.vA(c.tm1, c.tn2, c.part);
+    op.template vP<PR>(c.xt, c.tn1, c.part);
+    op.template vA<PR>(c.tm1, c.tn2, c.part);
     for (int j = tid; j < n; j += NT)
       c.tn1[j] = c.rhs[j] - ((c.tn1[j] + p.sigma * c.xt[j]) + c.tn2[j]);
     __syncthreads();
-    op.vK(c.tn1, c.tn2, c.part);
+    op.template vK<PR>(c.tn1, c.tn2, c.part);
     for (int j = tid; j < n; j += NT) c.xt[j] += c.tn2[j];
     __syncthreads();
   }
-  op.Av(c.xt, c.tm1);
+  op.template Av<PR>(c.xt, c.tm1);
   for (int j = tid; j < n; j += NT)
     c.x[j] = p.alpha * c.xt[j] + p.one_m_alpha * c.x[j];
   for (int i = tid; i < m; i += NT) {
@@ -764,7 +1025,11 @@ static __device__ __forceinline__ void one_iter(const QPParams& p, Ctx& c, const
 // same arithmetic and bits): A'(rho z - y) with rhs as its epilogue;
 // rhs.Kinv; rho A xt; xt.P and A'(rho A xt) in one pass with the
 // refinement residual; xt += (.).Kinv; then A xt with the z, y updates (x
-// beside it).
+// beside it). At a lowered PR the passes are the *_lp ones, and the
+// epilogues that make the two .Kinv products' vectors (rhs, the
+// refinement residual) also write their packed splits into tn2, which
+// this layout's iteration leaves free.
+template <int PR>
 static __device__ __forceinline__ void one_iter(const QPParams& p, Ctx& c,
                                                 const SparseOps& op) {
   const int n = p.n, tid = threadIdx.x;
@@ -774,6 +1039,45 @@ static __device__ __forceinline__ void one_iter(const QPParams& p, Ctx& c,
         *z = c.z, *y = c.y;
   const float *q = c.q, *rho = c.rho, *rinv = c.rinv, *l = c.l, *u = c.u;
   PHASE_START
+  if constexpr (PR != PREC_HIGHEST) {
+    float* vw = c.tn2;
+    cols_pass_lp<PR>(op.ac, [=](int i) { return rho[i] * z[i] - y[i]; },
+                     [=](int j, float s) {
+                       const float r = sigma * x[j] - q[j] + s;
+                       rhs[j] = r;
+                       vw[j] = pack_split<PR>(r);
+                     });
+    PHASE(PH_VA)
+    vecmat4_lp<PR>(vw, op.K, n, n, c.part,
+                   [=](int j, float s) { xt[j] = s; });
+    PHASE(PH_VK)
+    for (int r = 0; r < p.refine_steps; ++r) {
+      rows_pass_lp<PR>(op.ar, [=](int j) { return xt[j]; },
+                       [=](int i, float s) { tm1[i] = s * rho[i]; });
+      PHASE(PH_AV)
+      cols_pass2_lp<PR>(op.pc, [=](int i) { return xt[i]; }, op.ac,
+                        [=](int i) { return tm1[i]; },
+                        [=](int j, float px, float s) {
+                          const float t = rhs[j] - ((px + sigma * xt[j]) + s);
+                          tn1[j] = t;
+                          vw[j] = pack_split<PR>(t);
+                        });
+      PHASE(PH_VP_VA)
+      vecmat4_lp<PR>(vw, op.K, n, n, c.part,
+                     [=](int j, float s) { xt[j] += s; });
+      PHASE(PH_VK)
+    }
+    for (int j = tid; j < n; j += NT) x[j] = alpha * xt[j] + oma * x[j];
+    rows_pass_lp<PR>(op.ar, [=](int j) { return xt[j]; },
+                     [=](int i, float s) {
+                       const float zrel = alpha * s + oma * z[i];
+                       const float zn = clipf(zrel + y[i] * rinv[i], l[i], u[i]);
+                       y[i] = y[i] + rho[i] * (zrel - zn);
+                       z[i] = zn;
+                     });
+    PHASE(PH_AV_UPDATE)
+    return;
+  }
   cols_pass(op.ac, [=](int i) { return rho[i] * z[i] - y[i]; },
             [=](int j, float s) { rhs[j] = sigma * x[j] - q[j] + s; });
   PHASE(PH_VA)
@@ -830,9 +1134,10 @@ static __device__ __forceinline__ bool residuals(const QPParams& p, Ctx& c, cons
          dua < p.eps_abs + p.eps_rel * dua_sc;
 }
 
-// chunks of check_every iterations until converged or budget iterations
-// ran; sets iters on convergence (else leaves it unchanged)
-template <class Ops>
+// chunks of check_every iterations (their products at PR) until converged
+// or budget iterations ran; sets iters on convergence (else leaves it
+// unchanged)
+template <int PR, class Ops>
 static __device__ __forceinline__ void run_chunks(const QPParams& p, Ctx& c, const Ops& op,
                                   float c_inv, int budget, int it_base,
                                   float exit_pri, bool& done, int& iters,
@@ -841,7 +1146,7 @@ static __device__ __forceinline__ void run_chunks(const QPParams& p, Ctx& c, con
   const int n_chunks = max((budget + ce - 1) / ce, 1);
   for (int k = 0; k < n_chunks && !done; ++k) {
     const int this_chunk = min(ce, budget - k * ce);
-    for (int t = 0; t < this_chunk; ++t) one_iter(p, c, op);
+    for (int t = 0; t < this_chunk; ++t) one_iter<PR>(p, c, op);
     PHASE_START
     bool ok = residuals(p, c, op, c_inv, pri, dua);
     PHASE(PH_CHECK)
@@ -865,10 +1170,10 @@ static __device__ __forceinline__ void store_iterates(const QPParams& p, const C
 }
 
 // The main ADMM loop of scenario b (vectors already in the context): the
-// entry check, then run_chunks at fixed rho; writes x, z, y, (pri, dua),
-// (iters, done, needs-rescue) and the streamed flag, counting a streamed
-// scenario in *streamed.
-template <class Ops>
+// entry check, then run_chunks at fixed rho, its products at PR; writes x,
+// z, y, (pri, dua), (iters, done, needs-rescue) and the streamed flag,
+// counting a streamed scenario in *streamed.
+template <int PR, class Ops>
 static __device__ __forceinline__ void admm_loop(const QPParams& p, Ctx& c, int b,
                                  const Ops& op, float c_inv, bool stream,
                                  float* xo, float* zo, float* yo,
@@ -876,8 +1181,8 @@ static __device__ __forceinline__ void admm_loop(const QPParams& p, Ctx& c, int 
   float pri, dua;
   bool done = residuals(p, c, op, c_inv, pri, dua);   // entry check
   int iters = done ? 0 : p.max_iter;
-  run_chunks(p, c, op, c_inv, p.max_iter, 0, -INFINITY, done, iters, pri,
-             dua);
+  run_chunks<PR>(p, c, op, c_inv, p.max_iter, 0, -INFINITY, done, iters,
+                 pri, dua);
   store_iterates(p, c, b, xo, zo, yo);
   if (threadIdx.x == 0) {
     stats[b * 2 + 0] = pri;

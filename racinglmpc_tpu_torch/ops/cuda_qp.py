@@ -38,6 +38,18 @@ scenario whose nonzeros exceed the plan's cap (:func:`streams` predicts
 which). Every streamed scenario is flagged by the kernel and counted in
 :data:`streamed`; :data:`layout_launches` counts the launches per layout.
 
+Iteration precision (``iter_precision``, the reference's
+``SolverConfig.pallas_iter_precision``): the products of one ADMM iteration
+(v.A, A v, xt.P and the two .Kinv products) run at "highest" (float32 FMAs),
+"bf16x3" (each matrix M and each vector operand v split as hi = bf16(x),
+lo = bf16(x - hi), round to nearest even; v.M = v_hi.M_hi + (v_hi.M_lo +
+v_lo.M_hi), each of the three products accumulated in float32, where
+products of bf16 values are exact) or "default" (one pass over
+bf16-rounded operands, accumulated in float32: the single bf16 pass of the
+TPU's matrix unit). The residual checks and the whole rescue stay at full
+float32. :func:`iter_operand`, :func:`vm_at` and :func:`mv_at` are the
+plain versions of these products.
+
 Padding: the Pallas kernel pads n to a multiple of 128 with an identity
 pad block in K2 and a zero pad block in the warm start. That block never
 changes the ADMM iterates, but it is part of the rescue's Newton-Schulz
@@ -67,6 +79,10 @@ layout_launches = {"resident": cuda_build.LaunchCounter("admm_resident"),
                    "stream": cuda_build.LaunchCounter("admm_stream")}
 streamed = cuda_build.ScenarioCounter("admm_streamed")
 LAYOUTS = ("resident", "stream")
+ITER_PRECISIONS = ("highest", "bf16x3", "default")
+# launches of the main kernel's instantiation at each iteration precision
+precision_launches = {p: cuda_build.LaunchCounter(f"admm_{p}")
+                      for p in ITER_PRECISIONS}
 
 # shared memory of one H100 SM and the most one CTA may take (bytes), the
 # runtime's reservation per CTA, and the kernels' constants (qp_common.cuh)
@@ -178,6 +194,59 @@ def streams(P, A, nnz_cap: int) -> torch.Tensor:
     return ((A != 0).sum((1, 2)) + (P != 0).sum((1, 2))) > nnz_cap
 
 
+def iter_precision_code(iter_precision: str) -> int:
+    """The kernels' code of an iteration precision (its index in
+    :data:`ITER_PRECISIONS`); any other string raises ``ValueError``, as
+    the reference's ``_admm_core`` does."""
+    if iter_precision not in ITER_PRECISIONS:
+        raise ValueError(f"iter_precision: {iter_precision!r} (expected one "
+                         f"of {', '.join(ITER_PRECISIONS)})")
+    return ITER_PRECISIONS.index(iter_precision)
+
+
+def bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (nearest even), back in its own type."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def split_bf16(t: torch.Tensor):
+    """(hi, lo): hi = bf16(t), lo = bf16(t - hi), both in ``t``'s type."""
+    hi = bf16(t)
+    return hi, bf16(t - hi)
+
+
+def iter_operand(M: torch.Tensor, iter_precision: str):
+    """A matrix as the iteration's products read it: M itself ("highest"),
+    (bf16(M),) ("default") or its split (hi, lo) ("bf16x3"), made once per
+    call as the reference splits A, P and Kinv once per kernel call."""
+    if iter_precision == "highest":
+        return M
+    if iter_precision == "default":
+        return (bf16(M),)
+    return split_bf16(M)
+
+
+def _at(prod, v, Mf, iter_precision: str):
+    if iter_precision == "highest":
+        return prod(v, Mf)
+    if iter_precision == "default":
+        return prod(bf16(v), Mf[0])
+    vh, vl = split_bf16(v)
+    hi, lo = Mf
+    return prod(vh, hi) + (prod(vh, lo) + prod(vl, hi))
+
+
+def vm_at(v, Mf, iter_precision: str):
+    """v.M per lane at ``iter_precision``, on ``Mf = iter_operand(M, .)``;
+    "bf16x3" combines as hh + (hl + lh), the reference's association."""
+    return _at(_vm, v, Mf, iter_precision)
+
+
+def mv_at(Mf, v, iter_precision: str):
+    """M v per lane at ``iter_precision`` (see :func:`vm_at`)."""
+    return _at(lambda a, b: _mv(b, a), v, Mf, iter_precision)
+
+
 def _n_pad(n: int) -> int:
     return -(-n // _LANE) * _LANE - n
 
@@ -210,26 +279,34 @@ def admm_iterate_plain(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
                        rescue_rho_scale: float = 5.0,
                        rescue_trigger: float = 7.5e-3,
                        rescue_exit: float = 1e-3, ns_tol: float = 1e-3,
-                       ns_max_iters: int = 40, kinv_pad=None):
+                       ns_max_iters: int = 40, kinv_pad=None,
+                       iter_precision: str = "highest"):
     """Plain PyTorch version of the kernel on the same batched inputs.
     ``kinv_pad`` (B,): the scalar of Kinv's 128-pad block (B4's refreshed
     inverse); None for B1, whose padded Kinv has a zero pad block.
+    ``iter_precision``: the main loop's products (the rescue's run at
+    "highest").
 
     Returns (x (B, n), y (B, m), pri, dua, iters (int32), solved, rescued)
     in scaled coordinates."""
+    iter_precision_code(iter_precision)
     f = torch.float32
     P, Kinv, A = P.to(f), Kinv.to(f), A.to(f)
     v = _vec(q, l, u, rho, D, E, c)
     x, z, y = x0.to(f), z0.to(f), y0.to(f)
     one_m_alpha = 1.0 - alpha
 
-    def one_iter(v, P, A, Kinv, x, z, y):
-        rhs = sigma * x - v.q + _vm(v.rho * z - y, A)
-        xt = _vm(rhs, Kinv)
+    def one_iter(v, mats, x, z, y):
+        """One iteration on ``mats`` = (P, A, Kinv, precision), the
+        matrices as :func:`iter_operand` made them."""
+        P, A, Kinv, pr = mats
+        rhs = sigma * x - v.q + vm_at(v.rho * z - y, A, pr)
+        xt = vm_at(rhs, Kinv, pr)
         for _ in range(refine_steps):
-            r = rhs - (_vm(xt, P) + sigma * xt + _vm(v.rho * _mv(A, xt), A))
-            xt = xt + _vm(r, Kinv)
-        zt = _mv(A, xt)
+            r = rhs - (vm_at(xt, P, pr) + sigma * xt
+                       + vm_at(v.rho * mv_at(A, xt, pr), A, pr))
+            xt = xt + vm_at(r, Kinv, pr)
+        zt = mv_at(A, xt, pr)
         x_new = alpha * xt + one_m_alpha * x
         z_rel = alpha * zt + one_m_alpha * z
         z_new = torch.clamp(z_rel + y * v.rho_inv, v.l, v.u)
@@ -253,16 +330,17 @@ def admm_iterate_plain(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
               & (dua < eps_abs + eps_rel * dua_sc))
         return pri, dua, ok
 
-    def chunks(v, P, A, Kinv, x, z, y, pri, dua, done, iters, it_base,
+    def chunks(v, P, A, mats, x, z, y, pri, dua, done, iters, it_base,
                budget, exit_pri):
         """Check-every chunks while any lane is active; exactly ``budget``
-        iterations counted; newly converged lanes get it_base + used."""
+        iterations counted; newly converged lanes get it_base + used.
+        The iterations run on ``mats``, the checks on P and A."""
         for k in range(max(-(-budget // check_every), 1)):
             active = ~done
             if not bool(active.any()):
                 break
             for _ in range(min(check_every, budget - k * check_every)):
-                xn, zn, yn = one_iter(v, P, A, Kinv, x, z, y)
+                xn, zn, yn = one_iter(v, mats, x, z, y)
                 x, z, y = _w(active, xn, x), _w(active, zn, z), _w(active, yn, y)
             p, d, ok = residuals(v, P, A, x, y)
             if exit_pri is not None:
@@ -277,8 +355,10 @@ def admm_iterate_plain(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
 
     pri, dua, ok0 = residuals(v, P, A, x, y)
     iters = torch.where(ok0, 0, max_iter).to(torch.int32)
+    mats = tuple(iter_operand(M, iter_precision) for M in (P, A, Kinv))
     x, z, y, pri, dua, done, iters = chunks(
-        v, P, A, Kinv, x, z, y, pri, dua, ok0, iters, 0, max_iter, None)
+        v, P, A, mats + (iter_precision,), x, z, y, pri, dua, ok0, iters, 0,
+        max_iter, None)
     need = pri > rescue_trigger if rescue_max_iter > 0 else torch.zeros_like(done)
     idx = need.nonzero()[:, 0]
     if idx.numel() == 0:
@@ -294,7 +374,8 @@ def admm_iterate_plain(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
     vs = vs._replace(rho=vs.rho * s, rho_inv=vs.rho_inv / s)
     it_main = torch.clamp(iters[idx], max=max_iter)
     xs, _, ys, ps, ds, _, its = chunks(
-        vs, Ps, As, K2inv, x[idx], z[idx], y[idx], pri[idx], dua[idx],
+        vs, Ps, As, (Ps, As, K2inv, "highest"), x[idx], z[idx], y[idx],
+        pri[idx], dua[idx],
         torch.zeros_like(idx, dtype=torch.bool), it_main + rescue_max_iter,
         it_main, rescue_max_iter, rescue_exit)
     x, y, pri, dua, iters = (t.clone() for t in (x, y, pri, dua, iters))
@@ -410,10 +491,11 @@ def _launchers(lib: ctypes.CDLL):
     tail = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return dict(
         main=cuda_build.bind(lib, "rl_admm",
-                             [_Params] + [ctypes.c_void_p] * 15 + tail),
+                             [_Params] + [ctypes.c_void_p] * 15
+                             + [ctypes.c_int] + tail),
         rescue=cuda_build.bind(lib, "rl_admm_rescue",
                                [_Params] + [ctypes.c_void_p] * 13 + tail),
-        ctas=cuda_build.bind(lib, "rl_admm_ctas_per_sm", [ctypes.c_int] * 4),
+        ctas=cuda_build.bind(lib, "rl_admm_ctas_per_sm", [ctypes.c_int] * 5),
         smem=cuda_build.bind(lib, "rl_admm_smem_bytes", [ctypes.c_int] * 4,
                              ctypes.c_longlong))
 
@@ -443,11 +525,14 @@ def pick_layout(n: int, m: int, layout) -> Layout:
     return _stream_layout(n, m)
 
 
-def ctas_per_sm_on_card(n: int, m: int, layout: Layout) -> int:
-    """CTAs per SM of B1's main kernel in ``layout`` by the card's own
-    occupancy calculator (shared memory, registers, threads)."""
+def ctas_per_sm_on_card(n: int, m: int, layout: Layout,
+                        iter_precision: str = "highest") -> int:
+    """CTAs per SM of B1's main kernel in ``layout``, instantiated at
+    ``iter_precision``, by the card's own occupancy calculator (shared
+    memory, registers, threads)."""
     return _launchers(cuda_build.library())["ctas"](
-        n, m, layout.nnz_cap, int(layout.name == "resident"))
+        n, m, layout.nnz_cap, int(layout.name == "resident"),
+        iter_precision_code(iter_precision))
 
 
 def smem_bytes_on_card(n: int, m: int, layout: Layout) -> int:
@@ -463,6 +548,7 @@ def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
                  rescue_max_iter: int = 0, rescue_rho_scale: float = 5.0,
                  rescue_trigger: float = 7.5e-3, rescue_exit: float = 1e-3,
                  ns_tol: float = 1e-3, ns_max_iters: int = 40,
+                 iter_precision: str = "highest",
                  layout=None) -> Tuple[torch.Tensor, ...]:
     """ADMM loop for a batch of scaled QPs: P, Kinv (B, n, n), A (B, m, n),
     q, D, x0 (B, n), l, u, rho, E, z0, y0 (B, m), c (B,).
@@ -470,10 +556,12 @@ def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
     Returns (x, y, pri, dua, iters, solved, rescued). CPU tensors run the
     plain version; CUDA float32 contiguous tensors launch the kernel, in
     the plan's layout (``layout=None``) or the one forced (``"resident"``,
-    ``"stream"``: for checks only)."""
+    ``"stream"``: for checks only), its main loop instantiated at
+    ``iter_precision``."""
     if layout not in (None,) + LAYOUTS:
         raise ValueError(f"layout must be None, 'resident' or 'stream', got "
                          f"{layout!r}")
+    prec = iter_precision_code(iter_precision)
     kw = dict(sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
               max_iter=max_iter, check_every=check_every,
               refine_steps=refine_steps, rescue_max_iter=rescue_max_iter,
@@ -482,7 +570,7 @@ def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
               ns_tol=ns_tol, ns_max_iters=ns_max_iters)
     if not P.is_cuda:
         return admm_iterate_plain(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0,
-                                  y0, **kw)
+                                  y0, iter_precision=iter_precision, **kw)
     Bsz, n, _ = P.shape
     m = A.shape[1]
     for t, name, shape in (
@@ -506,10 +594,11 @@ def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
     err = _launchers(cuda_build.library())["main"](
         p, Pt(P), Pt(Kinv), Pt(A), Pt(nvecs), Pt(vecs), Pt(c_inv), Pt(x0),
         Pt(z0), Pt(y0), Pt(x), Pt(z), Pt(y), Pt(stats), Pt(flags),
-        Pt(streamed.tensor(P.device)), int(plan.name == "resident"), Bsz,
-        cuda_build.stream_ptr())
+        Pt(streamed.tensor(P.device)), prec, int(plan.name == "resident"),
+        Bsz, cuda_build.stream_ptr())
     launches.n += 1
     layout_launches[plan.name].n += 1
+    precision_launches[iter_precision].n += 1
     cuda_build.check(err)
     if rescue_max_iter > 0:
         launch_rescue(p, P, Kinv, A, nvecs, vecs, c_inv, None, x, z, y,

@@ -12,7 +12,10 @@ Replaces ``racinglmpc_tpu/ops/pallas_qp.py::_kernel_fused`` (through
   ``ns_tol`` and it < ``ns_max_iters``, each from r = inf (so every pass
   runs at least one iteration); the second restarts from Xj when the first
   ended non-finite or above 50 ``ns_tol``;
-- then B1's ADMM loop and rho-escalation rescue on the refreshed inverse.
+- then B1's ADMM loop and rho-escalation rescue on the refreshed inverse,
+  the loop's products at ``iter_precision`` (``cuda_qp``: "highest",
+  "bf16x3" or "default"; "bf16x3" splits the refreshed inverse), the
+  prologue and the rescue at full float32.
 
 This Newton-Schulz is NOT ``ops/qp._ns_inverse``: it has the Frobenius
 warm gate (no power-iteration gate), no divergence exit at r >= 1e6 and no
@@ -53,6 +56,9 @@ from racinglmpc_tpu_torch.ops import cuda_build, cuda_qp
 from racinglmpc_tpu_torch.utils.batched import lane_where as _w
 
 launches = cuda_build.LaunchCounter("fused_admm")
+# launches at each iteration precision of the ADMM loop
+precision_launches = {p: cuda_build.LaunchCounter(f"fused_admm_{p}")
+                      for p in cuda_qp.ITER_PRECISIONS}
 streamed = cuda_build.ScenarioCounter("fused_admm_streamed")
 MAX_REGS = 128    # registers a thread may take at 512 threads, one CTA an SM
 
@@ -162,8 +168,10 @@ def admm_iterate_fused_plain(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0,
                              rescue_max_iter: int = 0,
                              rescue_rho_scale: float = 5.0,
                              rescue_trigger: float = 7.5e-3,
-                             rescue_exit: float = 1e-3) -> FusedResult:
+                             rescue_exit: float = 1e-3,
+                             iter_precision: str = "highest") -> FusedResult:
     """Plain PyTorch version of the kernel on the same batched inputs."""
+    cuda_qp.iter_precision_code(iter_precision)
     kinv, resid, xp, warm, ns_it = prologue_plain(
         P, A, kinv0, warm_ok, rho, sigma=sigma, ns_tol=ns_tol,
         ns_max_iters=ns_max_iters)
@@ -173,7 +181,8 @@ def admm_iterate_fused_plain(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0,
         check_every=check_every, refine_steps=refine_steps,
         rescue_max_iter=rescue_max_iter, rescue_rho_scale=rescue_rho_scale,
         rescue_trigger=rescue_trigger, rescue_exit=rescue_exit,
-        ns_tol=ns_tol, ns_max_iters=ns_max_iters, kinv_pad=xp)
+        ns_tol=ns_tol, ns_max_iters=ns_max_iters, kinv_pad=xp,
+        iter_precision=iter_precision)
     return FusedResult(x, y, pri, dua, iters, solved, kinv, resid, rescued,
                        xp, warm, ns_it)
 
@@ -184,7 +193,7 @@ def _launchers(lib: ctypes.CDLL):
     return dict(
         main=cuda_build.bind(lib, "rl_admm_fused",
                              [cuda_qp._Params] + [ctypes.c_void_p] * 21
-                             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+                             + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
         ctas=cuda_build.bind(lib, "rl_fused_ctas_per_sm", [ctypes.c_int] * 2),
         smem=cuda_build.bind(lib, "rl_fused_smem_bytes", [ctypes.c_int] * 2,
                              ctypes.c_longlong))
@@ -209,11 +218,14 @@ def admm_iterate_fused(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0, z0,
                        rescue_max_iter: int = 0,
                        rescue_rho_scale: float = 5.0,
                        rescue_trigger: float = 7.5e-3,
-                       rescue_exit: float = 1e-3) -> FusedResult:
+                       rescue_exit: float = 1e-3,
+                       iter_precision: str = "highest") -> FusedResult:
     """Fused prologue + ADMM for a batch of scaled QPs: P, kinv0 (B, n, n),
     A (B, m, n), warm_ok (B,) bool, q, D, x0 (B, n), l, u, rho, E, z0, y0
     (B, m), c (B,). CPU tensors run the plain version; CUDA float32
-    contiguous tensors launch the kernel."""
+    contiguous tensors launch the kernel, its ADMM loop at
+    ``iter_precision``."""
+    prec = cuda_qp.iter_precision_code(iter_precision)
     kw = dict(sigma=sigma, alpha=alpha, eps_abs=eps_abs, eps_rel=eps_rel,
               max_iter=max_iter, check_every=check_every,
               refine_steps=refine_steps, ns_tol=ns_tol,
@@ -222,7 +234,8 @@ def admm_iterate_fused(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0, z0,
               rescue_trigger=rescue_trigger, rescue_exit=rescue_exit)
     if not P.is_cuda:
         return admm_iterate_fused_plain(P, A, kinv0, warm_ok, q, l, u, rho, D,
-                                        E, c, x0, z0, y0, **kw)
+                                        E, c, x0, z0, y0,
+                                        iter_precision=iter_precision, **kw)
     Bsz, n, _ = P.shape
     m = A.shape[1]
     for t, name, shape in (
@@ -254,9 +267,10 @@ def admm_iterate_fused(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0, z0,
         p, Pt(P), Pt(A), Pt(kinv0), Pt(warm_i), Pt(nvecs), Pt(vecs),
         Pt(c_inv), Pt(x0), Pt(z0), Pt(y0), Pt(x), Pt(z), Pt(y), Pt(stats),
         Pt(flags), Pt(kinv), Pt(ns_resid), Pt(kpad), Pt(ns_info), Pt(ws),
-        Pt(streamed.tensor(dev)), int(plan.name == "resident"), Bsz,
+        Pt(streamed.tensor(dev)), prec, int(plan.name == "resident"), Bsz,
         cuda_build.stream_ptr())
     launches.n += 1
+    precision_launches[iter_precision].n += 1
     cuda_build.check(err)
     if rescue_max_iter > 0:
         cuda_qp.launch_rescue(p, P, kinv, A, nvecs, vecs, c_inv, kpad, x, z,

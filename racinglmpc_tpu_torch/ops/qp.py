@@ -420,6 +420,7 @@ def kernel_args(pro: _Prologue, Kinv1, cfg: SolverConfig) -> dict:
         rescue_rho_scale=cfg.rescue_rho_scale,
         rescue_trigger=cfg.rescue_trigger, rescue_exit=cfg.rescue_exit,
         ns_tol=float(pro.ns_tol), ns_max_iters=cfg.ns_max_iters,
+        iter_precision=cfg.pallas_iter_precision,
     )
 
 
@@ -439,6 +440,7 @@ def fused_args(pro: _Prologue, cfg: SolverConfig) -> dict:
         rescue_max_iter=cfg.rescue_max_iter,
         rescue_rho_scale=cfg.rescue_rho_scale,
         rescue_trigger=cfg.rescue_trigger, rescue_exit=cfg.rescue_exit,
+        iter_precision=cfg.pallas_iter_precision,
     )
 
 
@@ -457,10 +459,8 @@ def solve(qp: QPData, cfg: SolverConfig = SolverConfig(), warm=None,
     when ``cfg.kkt_structured`` (which then takes precedence over the
     fused-prologue kernel, as in the reference)."""
     kernel = use_kernel(cfg, qp)
-    if kernel and cfg.pallas_iter_precision != "highest":
-        raise NotImplementedError(
-            "the CUDA ADMM kernels iterate in full float32 only "
-            "(pallas_iter_precision='highest')")
+    if kernel:   # the kernels' iteration precision (ValueError if unknown)
+        cuda_qp.iter_precision_code(cfg.pallas_iter_precision)
     use_structured = structure is not None and cfg.kkt_structured
 
     orig = qp

@@ -43,6 +43,12 @@ and update products of its Newton-Schulz iterations (sums and per
 product) and both passes as a whole, and over all its products the
 cycles a cell thread spent at the slab barriers, multiplying and in the
 epilogues, and a producer's issuing and waiting.
+
+``--iter-precision`` (``highest``, the default, ``bf16x3`` or ``default``:
+the reference's ``pallas_iter_precision``) runs ``--load`` and
+``--phases`` with the ADMM loop's products at that precision, on the same
+saved inputs (they are stored without it); a checkout whose wrappers take
+no ``iter_precision`` runs ``highest`` only.
 """
 from __future__ import annotations
 
@@ -90,6 +96,25 @@ def _time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(ts)
 
 
+def _precision_kw(fn, iter_precision: str) -> dict:
+    """``iter_precision`` as a keyword argument of ``fn`` (a checkout's
+    kernel wrapper), or none where the wrapper predates it (then only
+    "highest" runs)."""
+    if "iter_precision" in inspect.signature(fn).parameters:
+        return {"iter_precision": iter_precision}
+    if iter_precision != "highest":
+        raise SystemExit(f"{fn.__module__}.{fn.__name__} takes no "
+                         f"iter_precision")
+    return {}
+
+
+def _stored(kw: dict) -> dict:
+    """Keyword arguments as stored: on the CPU, without the iteration
+    precision (``--iter-precision`` chooses it when they are loaded)."""
+    return {k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()
+            if k != "iter_precision"}
+
+
 def save(path: str, batch: int = 256, steps: int = 100) -> None:
     from racinglmpc_tpu_torch.ops import qp as qp_mod
     from racinglmpc_tpu_torch.runtime import main_path
@@ -111,9 +136,7 @@ def save(path: str, batch: int = 256, steps: int = 100) -> None:
                            ("rescue", rescue, None)):
         pro, kinv, _ = qp_mod.admm_inputs(qp, scfg, (st.warm_x, st.warm_y),
                                           fac)
-        kw = qp_mod.kernel_args(pro, kinv, scfg)
-        out[key] = {k: v.cpu() if torch.is_tensor(v) else v
-                    for k, v in kw.items()}
+        out[key] = _stored(qp_mod.kernel_args(pro, kinv, scfg))
     torch.save(out, path)
 
 
@@ -123,40 +146,45 @@ def _card(query: str = "name,power.limit") -> str:
         capture_output=True, text=True, timeout=60).stdout.strip()
 
 
-def phases(path: str) -> None:
+def phases(path: str, iter_precision: str = "highest") -> None:
     cuda_build.DEFINES = ("QP_PHASES",)
     lib = cuda_build.library()
     lib.rl_admm_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.rl_admm_phases.restype = ctypes.c_int
     buf = (ctypes.c_longlong * len(PHASES))()
+    prec = _precision_kw(cuda_qp.admm_iterate, iter_precision)
     for key, kw in torch.load(path).items():
         kw = {k: v.cuda() if torch.is_tensor(v) else v for k, v in kw.items()}
         cuda_build.check(lib.rl_admm_phases(buf, 1))
-        out = cuda_qp.admm_iterate(**kw, layout="resident")
+        out = cuda_qp.admm_iterate(**kw, **prec, layout="resident")
         torch.cuda.synchronize()
         cuda_build.check(lib.rl_admm_phases(buf, 0))
         print(json.dumps(dict(
-            config=key, scenario0_iters=int(out[4][0]),
+            config=key, iter_precision=iter_precision,
+            scenario0_iters=int(out[4][0]),
             cycles=dict(zip(PHASES, list(buf))),
             sm_clock=_card("clocks.sm"), card=_card())), flush=True)
 
 
-def load(path: str) -> None:
+def load(path: str, iter_precision: str = "highest") -> None:
     from racinglmpc_tpu_torch.runtime import kernel_bench
 
     card = _card()
     layouts = [None]
     if "layout" in inspect.signature(cuda_qp.admm_iterate).parameters:
         layouts = list(cuda_qp.LAYOUTS)
+    prec = _precision_kw(cuda_qp.admm_iterate, iter_precision)
     for key, kw in torch.load(path).items():
         kw = {k: v.cuda() if torch.is_tensor(v) else v for k, v in kw.items()}
         for layout in layouts:
-            extra = {} if layout is None else {"layout": layout}
+            extra = dict(prec) if layout is None else dict(prec,
+                                                            layout=layout)
             out = cuda_qp.admm_iterate(**kw, **extra)
             ms = _time_ms(lambda: cuda_qp.admm_iterate(**kw, **extra))
             it = out[4].float()
             print(json.dumps(dict(
-                config=key, layout=layout or "default", ms=ms,
+                config=key, layout=layout or "default",
+                iter_precision=iter_precision, ms=ms,
                 iters_mean=float(it.mean()), iters_max=int(it.max()),
                 rescued=int(out[6].sum()), batch=int(it.numel()),
                 checksum=kernel_bench.checksum(out),
@@ -173,8 +201,8 @@ def save_b4(path: str) -> None:
     from racinglmpc_tpu_torch.utils.qp_cases import random_qps
 
     def keep(kw):
-        return {k: (v.to_sparse() if k in SPARSE else v).cpu()
-                if torch.is_tensor(v) else v for k, v in kw.items()}
+        return _stored({k: v.to_sparse() if k in SPARSE else v
+                        for k, v in kw.items()})
 
     trk = make_track(device="cuda")
     out = {}
@@ -232,12 +260,15 @@ def _bmm_ms(args, out) -> tuple:
     return kernel_bench.event_ms(run), 1 + k
 
 
-def load_b4(path: str) -> None:
+def load_b4(path: str, iter_precision: str = "highest") -> None:
     from racinglmpc_tpu_torch.ops import cuda_qp_fused
     from racinglmpc_tpu_torch.runtime import kernel_bench
 
     card = _card()
+    prec = _precision_kw(cuda_qp_fused.admm_iterate_fused, iter_precision)
     for key, args, kw in _b4_sets(path):
+        kw.update(prec)
+
         def fn():
             return cuda_qp_fused.admm_iterate_fused(*args, **kw)
 
@@ -251,7 +282,8 @@ def load_b4(path: str) -> None:
         ns = out.ns_iters.float()
         bmm, products = _bmm_ms(args, out)
         print(json.dumps(dict(
-            kernel="B4", config=key, batch=B, n=n, m=m,
+            kernel="B4", config=key, iter_precision=iter_precision,
+            batch=B, n=n, m=m,
             ms=kernel_bench.event_ms(fn),
             device_ms=kernel_bench.device_ms(fn, B4_KERNELS),
             ns_iters_mean=float(ns.mean()), ns_iters_max=int(ns.max()),
@@ -264,14 +296,16 @@ def load_b4(path: str) -> None:
             package=cuda_qp_fused.__file__, card=card)), flush=True)
 
 
-def phases_b4(path: str) -> None:
+def phases_b4(path: str, iter_precision: str = "highest") -> None:
     from racinglmpc_tpu_torch.ops import cuda_qp_fused
 
     cuda_build.DEFINES = ("QP_PHASES",)
     f = cuda_build.bind(cuda_build.library(), "rl_fused_phases",
                         [ctypes.c_void_p, ctypes.c_int])
     buf = (ctypes.c_longlong * len(FUSED_PHASES))()
+    prec = _precision_kw(cuda_qp_fused.admm_iterate_fused, iter_precision)
     for key, args, kw in _b4_sets(path):
+        kw.update(prec)
         cuda_build.check(f(buf, 1))
         out = cuda_qp_fused.admm_iterate_fused(*args, **kw)
         torch.cuda.synchronize()
@@ -279,7 +313,8 @@ def phases_b4(path: str) -> None:
         its = int(out.ns_iters[0])
         cyc = dict(zip(FUSED_PHASES, list(buf)))
         print(json.dumps(dict(
-            kernel="B4", config=key, scenario0_ns_iters=its,
+            kernel="B4", config=key, iter_precision=iter_precision,
+            scenario0_ns_iters=its,
             scenario0_warm=bool(out.warm[0]),
             scenario0_admm_iters=int(out.iters[0]), cycles=cyc,
             residual_product=cyc["NS residual products"] / max(its, 1),
@@ -295,11 +330,14 @@ if __name__ == "__main__":
     ap.add_argument("--load", help="time the kernel on stored inputs")
     ap.add_argument("--phases", help="phase clocks of the kernel on stored "
                     "inputs")
+    ap.add_argument("--iter-precision", default="highest",
+                    choices=("highest", "bf16x3", "default"),
+                    help="the ADMM loop's products in --load and --phases")
     a = ap.parse_args()
     b4 = a.kernel == "b4"
     if a.save:
         (save_b4 if b4 else save)(a.save)
     if a.load:
-        (load_b4 if b4 else load)(a.load)
+        (load_b4 if b4 else load)(a.load, a.iter_precision)
     if a.phases:
-        (phases_b4 if b4 else phases)(a.phases)
+        (phases_b4 if b4 else phases)(a.phases, a.iter_precision)

@@ -31,9 +31,12 @@ from racinglmpc_tpu_torch.utils.config import (LMPCConfig, SimConfig,
                                                SolverConfig, VehicleParams)
 
 
-def config() -> exp.ExperimentConfig:
+def config(solver: SolverConfig = None) -> exp.ExperimentConfig:
+    """The main path's configuration; ``solver`` replaces its
+    ``SolverConfig.throughput()`` (e.g. at another
+    ``pallas_iter_precision``)."""
     return exp.ExperimentConfig(
-        stage_steps=450, solver=SolverConfig.throughput(),
+        stage_steps=450, solver=solver or SolverConfig.throughput(),
         sim=SimConfig(use_pallas_rollout=True),
         lmpc=LMPCConfig(max_laps=12, max_pts=1024, model_pts=512,
                         use_pallas_sysid=True))
@@ -58,9 +61,11 @@ class Chunk(NamedTuple):
     unsolved: torch.Tensor    # () solves not at tolerance (incl. rejected)
 
 
-def setup(batch: int = 256, device="cuda", seed: int = 0):
-    """Returns (MainPath, seeded LMPC state, initial plant, PID result)."""
-    cfg = config()
+def setup(batch: int = 256, device="cuda", seed: int = 0,
+          solver: SolverConfig = None):
+    """Returns (MainPath, seeded LMPC state, initial plant, PID result);
+    ``solver``: see :func:`config`."""
+    cfg = config(solver)
     trk = make_track(device=device)
     pid = exp.run_experiment(cfg, batch=1, stages="pid", trk=trk,
                              device=device, seed=seed)

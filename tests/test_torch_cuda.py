@@ -12,6 +12,8 @@ import dataclasses
 import pytest
 import torch
 
+import chip_smoke
+
 from racinglmpc_tpu_torch.controllers import lmpc as lmpc_mod
 from racinglmpc_tpu_torch.models import dynamics, sysid
 from racinglmpc_tpu_torch.models.track import make_track, track_table
@@ -244,6 +246,67 @@ def test_admm_matches_plain(setup):
         cuda_qp.admm_iterate(args[0].transpose(1, 2), *args[1:], **kw)
 
 
+ADMM_NAMES = ("P", "Kinv", "A", "q", "l", "u", "rho", "D", "E", "c", "x0",
+              "z0", "y0")
+
+
+@pytest.mark.parametrize("prec", ["bf16x3", "default"])
+def test_admm_iteration_precision_matches_plain(setup, prec):
+    """B1 at a lowered iteration precision, both layouts, against the plain
+    version as ``chip_smoke.py`` phase 3 holds it (within twice the plain
+    version's own spread under float64 accumulation at bf16x3; the median
+    lane after one iteration at default, which diverges); two calls give
+    the same bits; the main kernel's instantiation runs one CTA per SM."""
+    cfg, trk, st, x0 = setup
+    ctrl = lmpc_mod.make_lmpc(cfg.lmpc, trk, cfg.solver, 0.1)
+    qp = ctrl.build_qp(st, x0)[0]
+    its = chip_smoke.FIXED_ITERS[prec]
+    fixed = dataclasses.replace(cfg.solver, eps_abs=0.0, eps_rel=0.0,
+                                max_iter=its, check_every=its,
+                                rescue_max_iter=0,
+                                pallas_iter_precision=prec)
+    pro, kinv, _ = qp_mod.admm_inputs(qp, fixed)
+    kw = qp_mod.kernel_args(pro, kinv, fixed)
+    args = [kw.pop(n) for n in ADMM_NAMES]
+    p = cuda_qp.admm_iterate_plain(*args, **kw)
+    for layout in cuda_qp.LAYOUTS:
+        cuda_qp.precision_launches[prec].reset()
+        k = cuda_qp.admm_iterate(*args, **kw, layout=layout)
+        assert cuda_qp.precision_launches[prec].n == 1
+        assert _same_bits(k, cuda_qp.admm_iterate(*args, **kw,
+                                                  layout=layout))
+        n, m = qp.q.shape[1], qp.l.shape[1]
+        assert cuda_qp.ctas_per_sm_on_card(
+            n, m, cuda_qp.pick_layout(n, m, layout), prec) == 1
+    with chip_smoke.float64_products(cuda_qp):
+        c = cuda_qp.admm_iterate_plain(*args, **kw)
+    for layout in cuda_qp.LAYOUTS:
+        k = cuda_qp.admm_iterate(*args, **kw, layout=layout)
+        ok, detail, _ = chip_smoke.variant_agrees(torch, prec, k[0], p[0],
+                                                  c[0])
+        assert ok, detail
+
+
+def test_admm_highest_is_the_default_and_unchanged(setup):
+    """``iter_precision="highest"`` is the call without it (same bits), held
+    to the plain version at the reference kernels' 3e-2."""
+    cfg, trk, st, x0 = setup
+    ctrl = lmpc_mod.make_lmpc(cfg.lmpc, trk, cfg.solver, 0.1)
+    qp = ctrl.build_qp(st, x0)[0]
+    fixed = dataclasses.replace(cfg.solver, eps_abs=0.0, eps_rel=0.0,
+                                max_iter=16, check_every=16,
+                                rescue_max_iter=0)
+    pro, kinv, _ = qp_mod.admm_inputs(qp, fixed)
+    kw = qp_mod.kernel_args(pro, kinv, fixed)
+    assert kw.pop("iter_precision") == "highest"
+    args = [kw.pop(n) for n in ADMM_NAMES]
+    k = cuda_qp.admm_iterate(*args, **kw)
+    assert _same_bits(k, cuda_qp.admm_iterate(*args, **kw,
+                                              iter_precision="highest"))
+    p = cuda_qp.admm_iterate_plain(*args, **kw)
+    assert float((k[0] - p[0]).abs().max()) < 3e-2
+
+
 FUSED_NAMES = ("P", "A", "kinv0", "warm_ok", "q", "l", "u", "rho", "D", "E",
                "c", "x0", "z0", "y0")
 
@@ -307,6 +370,44 @@ def test_fused_admm_main_path_ftocps(setup):
     assert qp.q.shape[1] == 200 and cuda_qp_fused.plan(200, 257).passes == 2
     _fused_vs_plain(qp, dataclasses.replace(cfg.solver, pallas_fused_ns=True),
                     (st.warm_x, st.warm_y), st.fac)
+
+
+@pytest.mark.parametrize("prec", ["bf16x3", "default"])
+def test_fused_admm_iteration_precision_matches_plain(setup, prec):
+    """B4 at a lowered iteration precision on the main path's FTOCPs: the
+    prologue gives highest's bits, the ADMM phase is held to the plain loop
+    on B4's own refreshed inverse, two calls give the same bits."""
+    cfg, trk, st, x0 = setup
+    ctrl = lmpc_mod.make_lmpc(cfg.lmpc, trk, cfg.solver, 0.1)
+    qp = ctrl.build_qp(st, x0)[0]
+    its = chip_smoke.FIXED_ITERS[prec]
+    fixed = dataclasses.replace(cfg.solver, eps_abs=0.0, eps_rel=0.0,
+                                max_iter=its, check_every=its,
+                                rescue_max_iter=0, pallas_fused_ns=True,
+                                pallas_iter_precision=prec)
+    kw = qp_mod.fused_inputs(qp, fixed, (st.warm_x, st.warm_y), st.fac)
+    args = [kw.pop(n) for n in FUSED_NAMES]
+    cuda_qp_fused.precision_launches[prec].reset()
+    k = cuda_qp_fused.admm_iterate_fused(*args, **kw)
+    assert cuda_qp_fused.precision_launches[prec].n == 1
+    assert _same_bits(k, cuda_qp_fused.admm_iterate_fused(*args, **kw))
+    kh = cuda_qp_fused.admm_iterate_fused(
+        *args, **dict(kw, iter_precision="highest"))
+    for name in ("kinv", "ns_resid", "kinv_pad", "warm", "ns_iters"):
+        assert torch.equal(getattr(k, name), getattr(kh, name))
+    a = dict(zip(FUSED_NAMES, args))
+
+    def loop():
+        return cuda_qp.admm_iterate_plain(
+            a["P"], k.kinv, a["A"], a["q"], a["l"], a["u"], a["rho"], a["D"],
+            a["E"], a["c"], a["x0"], a["z0"], a["y0"], kinv_pad=k.kinv_pad,
+            **kw)
+
+    p = loop()
+    with chip_smoke.float64_products(cuda_qp):
+        c = loop()
+    ok, detail, _ = chip_smoke.variant_agrees(torch, prec, k.x, p[0], c[0])
+    assert ok, detail
 
 
 def test_fused_plan_matches_kernel_source_and_card():
