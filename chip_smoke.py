@@ -38,18 +38,21 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    warm-up; its layouts in turns: resident, stream, stream, resident);
    then B1 at the lowered iteration precisions ("bf16x3", "default"; the
    reference's ``pallas_iter_precision``) in both layouts against the
-   plain version: bf16x3 after 16 fixed iterations within twice the
-   control (the plain version with float64 accumulation against itself:
-   bf16x3 rounds each operand to ~16 bits, so another summation order
-   moves a product by ~2^-17 and the iteration amplifies it), default
-   after one (it diverges on these FTOCPs) with the median lane within
-   1e-3 relative; two calls bit-identical; the forced rescue (full
-   precision whatever the loop's) with the plain version's flags (every
-   lane at bf16x3; at default a lane whose loop ends NaN is not rescued,
-   as in the reference) and its iteration counts on >= 95% of lanes;
-   every precision timed by events
-   around 20 back-to-back launches and on the device, at 16 fixed
-   iterations and at tolerance;
+   plain version: after one fixed iteration on 64 random QPs (n = 30)
+   within fixed limits (``SHARP``), every other precision's kernel
+   ("highest" included) beyond them; on the main path's FTOCPs bf16x3
+   after 16 fixed iterations within twice the control (the plain version
+   with float64 accumulation against itself: bf16x3 rounds each operand
+   to ~16 bits, so another summation order moves a product by ~2^-17 and
+   the iteration amplifies it), default after one (it diverges on these
+   FTOCPs) with the median lane within 1e-3 relative; at the main path's
+   tolerance solved count (or 2 scenarios) and mean iterations within 2%
+   of the plain version's; two calls bit-identical; the forced rescue (full precision
+   whatever the loop's) with the plain version's flags (every lane at
+   bf16x3; at default a lane whose loop ends NaN is not rescued, as in
+   the reference) and its iteration counts on >= 95% of lanes; every
+   precision timed by events around 20 back-to-back launches and on the
+   device, at 16 fixed iterations and at tolerance;
 4. runs the closed loop ``run_experiment(stages="pid,lti,ltv,lmpc",
    n_lmpc_laps=4, batch=4)`` and requires every lap finished, no NaN, a
    first->last lap improvement above 15% and no scenario streamed;
@@ -73,8 +76,10 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    the card's occupancy; times both (B4 by CUDA events and in a
    torch.profiler window); then B4 at bf16x3 and default on both sets: the
    prologue's outputs bit-identical to highest's, the ADMM phase against
-   the plain loop on B4's own refreshed inverse as phase 3 holds B1, two
-   calls bit-identical, every precision timed in one loop; and the
+   the plain loop on B4's own refreshed inverse as phase 3 holds B1 (and
+   on the random QPs), solves and iterations at tolerance as the plain
+   version's, two calls bit-identical, every precision timed in one loop;
+   and the
    structured KKT inverse on the throughput_max LTV stage's K: max|I - K
    X| < 5e-2;
 7. runs the LMPC stage for 2 laps with a checkpoint, resumes it to 4 laps
@@ -112,8 +117,11 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    on every step and no scenario streamed (the rejected share is the
    card's verdict, not a gate);
 10. prints one JSON line of kernel summaries (B1 and B4 also at each
-   lowered precision, their launches from phase 9), the card line, and as
-   the last line ``{"ok": true, "device": {...}}``.
+   lowered precision, their launches from phase 9; a variant's
+   ``max_abs_err`` is that of the random-QP check, ``ftocp_max_abs_err``
+   that of the FTOCP check; its bound prices the main loop's products at
+   the bf16 tensor-core rate), the card line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when no CUDA device is present or
 any phase fails. It imports nothing of JAX.
@@ -132,6 +140,7 @@ import time
 FAILED = []
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
+H100_BF16_FLOPS = 989e12       # bf16 x bf16 -> float32 on the tensor cores
 
 
 def check(name, ok, detail=""):
@@ -141,9 +150,12 @@ def check(name, ok, detail=""):
         FAILED.append(name)
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, bf16_ops: float = 0.0):
+    """(ms, "bytes" or "operations"): ``ops`` float32 operations and
+    ``bf16_ops`` products of bf16 operands accumulated in float32, each at
+    its type's peak rate."""
     t_b = nbytes / H100_BYTES_PER_S * 1e3
-    t_o = ops / H100_F32_FLOPS * 1e3
+    t_o = (ops / H100_F32_FLOPS + bf16_ops / H100_BF16_FLOPS) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -173,26 +185,36 @@ def count(c):
     return c.n if hasattr(c, "n") else c.value()
 
 
-def admm_ops(torch, P, A, n, m, iters, refine, check_every, products=1):
-    """Operations the ADMM loop's work needs on these inputs, per scenario:
-    per iteration 1 + refine passes over the dense Kinv, 2 + 2 refine
-    sparse products with A and refine with P (2 operations per nonzero),
-    each ``products`` times (3 at bf16x3), 30 (n + m) elementwise; per
-    check (the entry check and one per chunk) one product with A each way
-    and one with P."""
+def admm_ops(torch, P, A, n, m, iters, refine, check_every,
+             precision="highest", max_iter=None):
+    """(float32, bf16) operations the ADMM loop's work needs on these
+    inputs, per scenario: per iteration 1 + refine passes over the dense
+    Kinv, 2 + 2 refine sparse products with A and refine with P (2
+    operations per nonzero), 30 (n + m) elementwise; per check (the entry
+    check and one per chunk) one product with A each way and one with P.
+    Below "highest" the main loop's products (its first ``max_iter``
+    iterations) are bf16 products, three of them at bf16x3; the rescue's
+    iterations, the elementwise work and the checks stay float32. Neither
+    count holds the rescue's inverse rebuild (nor does it at highest)."""
     nnz_a = (A != 0).sum((1, 2)).double()
     nnz_p = (P != 0).sum((1, 2)).double()
-    per_iter = (products * (2.0 * n * n * (1 + refine)
-                            + 2.0 * nnz_a * (2 + 2 * refine)
-                            + 2.0 * nnz_p * refine) + 30.0 * (n + m))
+    prod = (2.0 * n * n * (1 + refine) + 2.0 * nnz_a * (2 + 2 * refine)
+            + 2.0 * nnz_p * refine)
     per_check = 4.0 * nnz_a + 2.0 * nnz_p + 20.0 * (n + m)
     iters = iters.double()
     checks = 1 + torch.ceil(iters / check_every)
-    return iters * per_iter + checks * per_check
+    f32 = iters * 30.0 * (n + m) + checks * per_check
+    if precision == "highest":
+        return f32 + iters * prod, torch.zeros_like(f32)
+    main = torch.clamp(iters, max=max_iter)
+    return (f32 + (iters - main) * prod,
+            main * prod * (3.0 if precision == "bf16x3" else 1.0))
 
 
 FUSED_NAMES = ("P", "A", "kinv0", "warm_ok", "q", "l", "u", "rho", "D", "E",
                "c", "x0", "z0", "y0")
+ADMM_NAMES = ("P", "Kinv", "A", "q", "l", "u", "rho", "D", "E", "c", "x0",
+              "z0", "y0")
 STAGE_RUNS = (("config2_lti", "fused"), ("config2_lti", "base"),
               ("config3_ltv", "fused"), ("config3_ltv", "base"),
               ("config3_ltv", "max"))
@@ -362,7 +384,7 @@ def fused_phase(torch, qp_mod, cuda_qp, cuda_qp_fused, runs, trk, launches):
                      + p.ns_iters.double() * 4.0 * n ** 3
                      + admm_ops(torch, a["P"], a["A"], n, m, k.iters,
                                 kw["refine_steps"],
-                                cfg.solver.check_every)).sum())
+                                cfg.solver.check_every)[0]).sum())
         bms, by = bound_ms(nbytes(*args, k.x, k.y, k.pri, k.dua, k.iters,
                                   k.kinv, k.ns_resid), ops)
         print(f"[chip_smoke] kernel fused_admm ({stage}, batch {B}): "
@@ -380,14 +402,16 @@ def fused_phase(torch, qp_mod, cuda_qp, cuda_qp_fused, runs, trk, launches):
         variants[stage] = b4_precisions(torch, qp_mod, cuda_qp,
                                         cuda_qp_fused, kernel_bench, f,
                                         cfg.solver, stage)
+    sharp = sharp_check(qp_mod, cuda_qp, cuda_qp_fused, "fused_admm")
     entries = [dict(
         name=f"fused_admm_{prec}", route="cuda",
         source="racinglmpc_tpu_torch/csrc/cuda_qp_fused.cu",
         replaces="racinglmpc_tpu/ops/pallas_qp.py:424", launches=None,
-        max_abs_err=max(variants[st][prec]["max_abs_err"]
-                        for st in variants),
+        max_abs_err=sharp[prec],
         **{k: v for k, v in variants["ltv"][prec].items()
-           if k != "max_abs_err"},
+           if k != "ftocp_max_abs_err"},
+        ftocp_max_abs_err=max(variants[st][prec]["ftocp_max_abs_err"]
+                              for st in variants),
         library_ms=None, lti=variants["lti"][prec]) for prec in VARIANTS]
     return entries, dict(name="fused_admm", route="cuda",
                 source="racinglmpc_tpu_torch/csrc/cuda_qp_fused.cu",
@@ -471,14 +495,118 @@ def variant_vs_plain(torch, name, prec, kx, px, cx):
     return err
 
 
-def b1_precisions(torch, cuda_qp, kernel_bench, admm_args, solver, fac,
-                  rescue_cfg, check_every):
-    """Phase 3, B1 at bf16x3 and default: against the plain version in both
-    layouts, two calls bit-identical, the forced rescue (full precision
-    whatever the main loop's), and every precision's time (events around
-    20 back-to-back launches and device time) at 16 fixed iterations and
-    at the main path's tolerance, in one loop. Returns the kernel entries
-    (launches filled in by phase 9)."""
+# The variants' sharp check: one fixed iteration on 64 random QPs (n = 30,
+# ``utils/qp_cases.random_qps``), before the iteration amplifies a
+# reordered sum. Per precision, limits on the mean over lanes of each
+# lane's max |dx| and on the max over all lanes, kernel against plain; the
+# other precisions' kernels must lie beyond the mean limit from this
+# precision's plain version, so the check tells "highest" from "bf16x3",
+# the closest pair. ``tests/test_torch_iter_precision.py`` holds the
+# limits between the plain version in another summation order and the
+# other precisions, and shows a dropped cross term refused.
+SHARP = {"bf16x3": (5e-6, 1e-4), "default": (1e-3, 1e-2)}
+SHARP_SOLVER = dict(max_iter=1, check_every=1, eps_abs=0.0, eps_rel=0.0,
+                    rescue_max_iter=0, polish=False, adaptive_rho=False,
+                    use_pallas=True)
+
+
+def lane_dist(a, b):
+    """(mean over lanes, max) of each lane's max |a - b|."""
+    d = (a - b).abs().amax(-1)
+    return float(d.mean()), float(d.max())
+
+
+def sharp_agrees(prec, xs, px):
+    """(ok, detail, max |dx|): ``xs`` {precision: kernel x}, ``px`` the
+    plain version's x at ``prec``, after one iteration (:data:`SHARP`)."""
+    mean_l, max_l = SHARP[prec]
+    mean_e, max_e = lane_dist(xs[prec], px)
+    others = {o: lane_dist(x, px)[0] for o, x in xs.items() if o != prec}
+    ok = mean_e < mean_l and max_e < max_l and min(others.values()) > mean_l
+    return ok, (f"(lane mean {mean_e:.2e} < {mean_l:.0e}, max {max_e:.2e} "
+                f"< {max_l:.0e}; other precisions' kernels at lane mean "
+                + ", ".join(f"{o} {d:.2e}" for o, d in others.items())
+                + f" > {mean_l:.0e})"), max_e
+
+
+def sharp_runs(qp_mod, cuda_qp, cuda_qp_fused, kernel, layout=None,
+               device="cuda"):
+    """(kernel(prec), plain(prec)) -> x after one fixed iteration on the
+    random QPs of :data:`SHARP`: B1 (``kernel="admm"``, in ``layout``) or
+    B4 (``"fused_admm"``: its ADMM phase, against the plain loop on B4's
+    own refreshed inverse, which does not depend on the precision)."""
+    from racinglmpc_tpu_torch.utils.config import SolverConfig
+    from racinglmpc_tpu_torch.utils.qp_cases import random_qps
+
+    cfg = SolverConfig(**SHARP_SOLVER, pallas_fused_ns=kernel != "admm")
+    qps = random_qps(64, device=device)
+    if kernel == "admm":
+        pro, kinv, _ = qp_mod.admm_inputs(qps, cfg)
+        kw = qp_mod.kernel_args(pro, kinv, cfg)
+        args = [kw.pop(nm) for nm in ADMM_NAMES]
+        return (lambda prec: cuda_qp.admm_iterate(
+                    *args, **dict(kw, iter_precision=prec),
+                    layout=layout)[0],
+                lambda prec: cuda_qp.admm_iterate_plain(
+                    *args, **dict(kw, iter_precision=prec))[0])
+    kw = qp_mod.fused_inputs(qps, cfg)
+    args = [kw.pop(nm) for nm in FUSED_NAMES]
+    a = dict(zip(FUSED_NAMES, args))
+    k = cuda_qp_fused.admm_iterate_fused(*args, **kw)
+    return (lambda prec: cuda_qp_fused.admm_iterate_fused(
+                *args, **dict(kw, iter_precision=prec)).x,
+            lambda prec: cuda_qp.admm_iterate_plain(
+                a["P"], k.kinv, a["A"], a["q"], a["l"], a["u"], a["rho"],
+                a["D"], a["E"], a["c"], a["x0"], a["z0"], a["y0"],
+                kinv_pad=k.kinv_pad, **dict(kw, iter_precision=prec))[0])
+
+
+def sharp_check(qp_mod, cuda_qp, cuda_qp_fused, kernel, layout=None):
+    """Checks :func:`sharp_agrees` for each variant of B1 (in ``layout``)
+    or B4; returns {precision: max |dx|}."""
+    run_k, run_p = sharp_runs(qp_mod, cuda_qp, cuda_qp_fused, kernel,
+                              layout)
+    xs = {prec: run_k(prec) for prec in cuda_qp.ITER_PRECISIONS}
+    errs = {}
+    for prec in VARIANTS:
+        ok, detail, errs[prec] = sharp_agrees(prec, xs, run_p(prec))
+        tag = kernel + (f"_{layout}" if layout else "")
+        check(f"{tag}_{prec}_one_iteration_random_qps", ok, detail)
+    return errs
+
+
+# at the solvers' tolerance a variant's kernel and plain version solve as
+# many scenarios, in as many iterations, within these shares (of the batch
+# and of the plain version's mean); the solved counts also within two
+# scenarios, since each is a chaotic lane's outcome at the tolerance's edge
+# (2 of 16 main-path FTOCPs apart at bf16x3 on the card)
+TOLERANCE_SHARE = 0.02
+TOLERANCE_SOLVES = 2
+
+
+def tolerance_agrees(k_solved, k_iters, p_solved, p_iters):
+    """(ok, detail): solved flags and iteration counts of a kernel and its
+    plain version at tolerance, within :data:`TOLERANCE_SHARE`."""
+    B = k_solved.numel()
+    ks, ps = int(k_solved.sum()), int(p_solved.sum())
+    km, pm = float(k_iters.float().mean()), float(p_iters.float().mean())
+    ok = (abs(ks - ps) <= max(TOLERANCE_SHARE * B, TOLERANCE_SOLVES)
+          and abs(km - pm) <= TOLERANCE_SHARE * pm)
+    return ok, (f"(solved kernel {ks} plain {ps} of {B}, iters mean kernel "
+                f"{km:.2f} plain {pm:.2f}; within {TOLERANCE_SHARE:.0%}, "
+                f"solves also within {TOLERANCE_SOLVES})")
+
+
+def b1_precisions(torch, qp_mod, cuda_qp, cuda_qp_fused, kernel_bench,
+                  admm_args, solver, fac, rescue_cfg, check_every):
+    """Phase 3, B1 at bf16x3 and default: the sharp check
+    (:func:`sharp_check`) and against the plain version on the main path's
+    FTOCPs in both layouts, two calls bit-identical, the forced rescue
+    (full precision whatever the main loop's), solves and iterations at
+    tolerance as the plain version's (:func:`tolerance_agrees`), and every
+    precision's time (events around 20 back-to-back launches and device
+    time) at 16 fixed iterations and at the main path's tolerance, in one
+    loop. Returns the kernel entries (launches filled in by phase 9)."""
     times = {}
     for prec in cuda_qp.ITER_PRECISIONS:
         sp = dataclasses.replace(solver, pallas_iter_precision=prec)
@@ -498,6 +626,8 @@ def b1_precisions(torch, cuda_qp, kernel_bench, admm_args, solver, fac,
                 lambda: cuda_qp.admm_iterate(*t_args, **t_kw), names))
     print(f"[chip_smoke] B1 by iteration precision (ms per call, 20 "
           f"back-to-back launches; device: torch.profiler): {times}")
+    sharp = [sharp_check(qp_mod, cuda_qp, cuda_qp_fused, "admm", lay)
+             for lay in cuda_qp.LAYOUTS]
     entries = []
     for prec in VARIANTS:
         its = FIXED_ITERS[prec]
@@ -537,14 +667,17 @@ def b1_precisions(torch, cuda_qp, kernel_bench, admm_args, solver, fac,
               f"lanes)")
         t_args, t_kw = admm_args(sp, fac)
         k = cuda_qp.admm_iterate(*t_args, **t_kw)
+        pt = cuda_qp.admm_iterate_plain(*t_args, **t_kw)
+        ok, detail = tolerance_agrees(k[5], k[4], pt[5], pt[4])
+        check(f"admm_{prec}_tolerance_as_plain", ok, detail)
         pms = time_ms(torch, lambda: cuda_qp.admm_iterate_plain(
             *t_args, **t_kw), reps=3, warm=1)
         B, n = t_args[3].shape
-        ops = float(admm_ops(torch, t_args[0], t_args[2], n,
-                             t_args[4].shape[1], k[4], t_kw["refine_steps"],
-                             check_every, products=3 if prec == "bf16x3"
-                             else 1).sum())
-        bms, by = bound_ms(nbytes(*t_args, *k[:5]), ops)
+        f32, b16 = admm_ops(torch, t_args[0], t_args[2], n,
+                            t_args[4].shape[1], k[4], t_kw["refine_steps"],
+                            check_every, prec, t_kw["max_iter"])
+        bms, by = bound_ms(nbytes(*t_args, *k[:5]), float(f32.sum()),
+                           float(b16.sum()))
         print(f"[chip_smoke] kernel admm_{prec} (batch {B}): "
               f"{times[prec]['ms']:.4f} ms at tolerance (highest "
               f"{times['highest']['ms']:.4f}; device "
@@ -558,7 +691,8 @@ def b1_precisions(torch, cuda_qp, kernel_bench, admm_args, solver, fac,
             name=f"admm_{prec}", route="cuda",
             source="racinglmpc_tpu_torch/csrc/cuda_qp.cu",
             replaces="racinglmpc_tpu/ops/pallas_qp.py:391", launches=None,
-            max_abs_err=max(errs), ms=times[prec]["ms"],
+            max_abs_err=max(e[prec] for e in sharp),
+            ftocp_max_abs_err=max(errs), ms=times[prec]["ms"],
             device_ms=times[prec]["device_ms"], plain_ms=pms, bound_ms=bms,
             bound_by=by, library_ms=None,
             fixed16_ms=times[prec]["fixed16_ms"],
@@ -626,23 +760,25 @@ def b4_precisions(torch, qp_mod, cuda_qp, cuda_qp_fused, kernel_bench, f,
             solver, pallas_iter_precision=prec), f.warm, f.fac)
         args = [kw.pop(nm) for nm in FUSED_NAMES]
         k = cuda_qp_fused.admm_iterate_fused(*args, **kw)
+        pt = cuda_qp_fused.admm_iterate_fused_plain(*args, **kw)
+        ok, detail = tolerance_agrees(k.solved, k.iters, pt.solved, pt.iters)
+        check(f"fused_admm_{prec}_{stage}_tolerance_as_plain", ok, detail)
         pms = time_ms(torch, lambda: cuda_qp_fused.admm_iterate_fused_plain(
             *args, **kw), reps=3, warm=1)
         a = dict(zip(FUSED_NAMES, args))
         B, n = a["q"].shape
         m = a["l"].shape[1]
-        # as phase 6 counts B4 at highest, the iteration's products three
-        # times at bf16x3
+        # as phase 6 counts B4 at highest (K build, warm test and
+        # Newton-Schulz in float32), the main loop's products in bf16
         row = (a["A"] != 0).sum(2).double()
         k_build = (2.0 * (row * row).sum(1) + (a["P"] != 0).sum((1, 2)) + n)
+        f32, b16 = admm_ops(torch, a["P"], a["A"], n, m, k.iters,
+                            kw["refine_steps"], solver.check_every, prec,
+                            kw["max_iter"])
         ops = float((k_build + a["warm_ok"].double() * 2.0 * n ** 3
-                     + k.ns_iters.double() * 4.0 * n ** 3
-                     + admm_ops(torch, a["P"], a["A"], n, m, k.iters,
-                                kw["refine_steps"], solver.check_every,
-                                products=3 if prec == "bf16x3" else 1)
-                     ).sum())
+                     + k.ns_iters.double() * 4.0 * n ** 3 + f32).sum())
         bms, by = bound_ms(nbytes(*args, k.x, k.y, k.pri, k.dua, k.iters,
-                                  k.kinv, k.ns_resid), ops)
+                                  k.kinv, k.ns_resid), ops, float(b16.sum()))
         print(f"[chip_smoke] kernel fused_admm_{prec} ({stage}, batch {B}): "
               f"{times[prec]['ms']:.4f} ms (highest "
               f"{times['highest']['ms']:.4f}; device "
@@ -651,7 +787,7 @@ def b4_precisions(torch, qp_mod, cuda_qp, cuda_qp_fused, kernel_bench, f,
               f"{bms:.4f} ms by {by}; solved {int(k.solved.sum())}/{B}, ADMM "
               f"iters mean {float(k.iters.float().mean()):.1f}, rescued "
               f"{int(k.rescued.sum())}")
-        out[prec] = dict(max_abs_err=err, ms=times[prec]["ms"],
+        out[prec] = dict(ftocp_max_abs_err=err, ms=times[prec]["ms"],
                          device_ms=times[prec]["device_ms"], plain_ms=pms,
                          bound_ms=bms, bound_by=by,
                          highest_ms=times["highest"]["ms"],
@@ -1104,8 +1240,7 @@ def main() -> int:
     # B1: the batch's own FTOCPs, prologue as in the solve
     qp, _, _, _ = ctrl.build_qp(state, plant.x)
     warm = (state.warm_x, state.warm_y)
-    names = ("P", "Kinv", "A", "q", "l", "u", "rho", "D", "E", "c", "x0",
-             "z0", "y0")
+    names = ADMM_NAMES
 
     def admm_args(scfg, fac):
         pro, Kinv1, _ = qp_mod.admm_inputs(qp, scfg, warm, fac)
@@ -1184,7 +1319,7 @@ def main() -> int:
                                  ("admm_main", "admm_rescue"))
     pms = time_ms(torch, lambda: cuda_qp.admm_iterate_plain(*args, **kw))
     ops = float(admm_ops(torch, args[0], args[2], n, m, k[4],
-                         kw["refine_steps"], cfg.solver.check_every).sum())
+                         kw["refine_steps"], cfg.solver.check_every)[0].sum())
     bms, by = bound_ms(nbytes(*args, k[0], k[1], k[2], k[3], k[4]), ops)
     print(f"[chip_smoke] kernel admm layouts in turns (resident, stream, "
           f"stream, resident): {times}; bound {bms:.4f} ms by {by} "
@@ -1198,9 +1333,9 @@ def main() -> int:
         launches=launches["admm"], max_abs_err=max(err_b1.values()), ms=ms,
         device_ms=dms, plain_ms=pms, bound_ms=bms, bound_by=by,
         library_ms=None, resident_ms=ms, stream_ms=stream_ms))
-    variants = b1_precisions(torch, cuda_qp, kernel_bench, admm_args,
-                             cfg.solver, state.fac, rescue_cfg,
-                             cfg.solver.check_every)
+    variants = b1_precisions(torch, qp_mod, cuda_qp, cuda_qp_fused,
+                             kernel_bench, admm_args, cfg.solver, state.fac,
+                             rescue_cfg, cfg.solver.check_every)
     for kinfo in kernels:
         print(f"[chip_smoke] kernel {kinfo['name']}: {kinfo['ms']:.4f} ms "
               f"(device {kinfo['device_ms']}, plain "

@@ -288,24 +288,6 @@ extern "C" int rl_admm_ctas_per_sm(int n, int m, int nnz_cap, int layout,
   return ctas;
 }
 
-template <int PR>
-static void launch_main(const QPParams& p, const float* P, const float* Kinv,
-                        const float* A, const float* nvecs,
-                        const float* vecs, const float* cinv,
-                        const float* x0, const float* z0, const float* y0,
-                        float* xo, float* zo, float* yo, float* stats,
-                        int* flags, int* streamed, int layout, int B,
-                        size_t smem, cudaStream_t st) {
-  if (layout == LAYOUT_RESIDENT)
-    admm_main_resident<PR><<<B, NT, smem, st>>>(p, P, Kinv, A, nvecs, vecs,
-                                                cinv, x0, z0, y0, xo, zo,
-                                                yo, stats, flags, streamed);
-  else
-    admm_main_stream<PR><<<B, NT, smem, st>>>(p, P, Kinv, A, nvecs, vecs,
-                                              cinv, x0, z0, y0, xo, zo, yo,
-                                              stats, flags, streamed);
-}
-
 // the main launch in a layout, its loop at iteration precision prec
 extern "C" int rl_admm(QPParams p, const float* P, const float* Kinv,
                        const float* A, const float* nvecs, const float* vecs,
@@ -319,20 +301,11 @@ extern "C" int rl_admm(QPParams p, const float* P, const float* Kinv,
   const size_t smem = rl_admm_smem_bytes(p.n, p.m, p.nnz_cap, layout);
   int e = set_smem(fn, smem);
   if (e) return e;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (prec == PREC_HIGHEST)
-    launch_main<PREC_HIGHEST>(p, P, Kinv, A, nvecs, vecs, cinv, x0, z0, y0,
-                              xo, zo, yo, stats, flags, streamed, layout, B,
-                              smem, st);
-  else if (prec == PREC_BF16X3)
-    launch_main<PREC_BF16X3>(p, P, Kinv, A, nvecs, vecs, cinv, x0, z0, y0,
-                             xo, zo, yo, stats, flags, streamed, layout, B,
-                             smem, st);
-  else
-    launch_main<PREC_DEFAULT>(p, P, Kinv, A, nvecs, vecs, cinv, x0, z0, y0,
-                              xo, zo, yo, stats, flags, streamed, layout, B,
-                              smem, st);
-  return static_cast<int>(cudaGetLastError());
+  // both layouts' kernels take the same arguments
+  void* args[] = {&p,  &P,  &Kinv, &A,  &nvecs, &vecs,  &cinv,  &x0,
+                  &z0, &y0, &xo,   &zo, &yo,    &stats, &flags, &streamed};
+  return static_cast<int>(cudaLaunchKernel(fn, dim3(B), dim3(NT), args, smem,
+                                           static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int rl_admm_rescue(QPParams p, const float* P, const float* Kinv,

@@ -287,6 +287,43 @@ def test_admm_iteration_precision_matches_plain(setup, prec):
         assert ok, detail
 
 
+@pytest.mark.parametrize("kernel,layout", [("admm", "resident"),
+                                           ("admm", "stream"),
+                                           ("fused_admm", None)])
+def test_iteration_precision_one_iteration_random_qps(kernel, layout):
+    """B1 (each layout) and B4 at each lowered precision after one
+    iteration on random QPs, as ``chip_smoke.py`` phases 3 and 6 hold them:
+    within the ``SHARP`` limits of the plain version, every other
+    precision's kernel beyond them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    run_k, run_p = chip_smoke.sharp_runs(qp_mod, cuda_qp, cuda_qp_fused,
+                                         kernel, layout)
+    xs = {prec: run_k(prec) for prec in cuda_qp.ITER_PRECISIONS}
+    for prec in chip_smoke.VARIANTS:
+        ok, detail, _ = chip_smoke.sharp_agrees(prec, xs, run_p(prec))
+        assert ok, (prec, detail)
+
+
+@pytest.mark.parametrize("prec", ["bf16x3", "default"])
+def test_admm_iteration_precision_at_tolerance(setup, prec):
+    """B1 at a lowered precision at the main path's tolerance solves as
+    many FTOCPs in as many iterations as its plain version
+    (``chip_smoke.tolerance_agrees``)."""
+    cfg, trk, st, x0 = setup
+    ctrl = lmpc_mod.make_lmpc(cfg.lmpc, trk, cfg.solver, 0.1)
+    qp = ctrl.build_qp(st, x0)[0]
+    scfg = dataclasses.replace(cfg.solver, pallas_iter_precision=prec)
+    pro, kinv, _ = qp_mod.admm_inputs(qp, scfg, (st.warm_x, st.warm_y),
+                                      st.fac)
+    kw = qp_mod.kernel_args(pro, kinv, scfg)
+    args = [kw.pop(n) for n in ADMM_NAMES]
+    k = cuda_qp.admm_iterate(*args, **kw)
+    p = cuda_qp.admm_iterate_plain(*args, **kw)
+    ok, detail = chip_smoke.tolerance_agrees(k[5], k[4], p[5], p[4])
+    assert ok, detail
+
+
 def test_admm_highest_is_the_default_and_unchanged(setup):
     """``iter_precision="highest"`` is the call without it (same bits), held
     to the plain version at the reference kernels' 3e-2."""

@@ -42,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from racinglmpc_tpu.ops import qp as jqp
 from racinglmpc_tpu.utils.config import SolverConfig as JS
 from racinglmpc_tpu_torch.ops import cuda_qp, cuda_qp_fused
@@ -306,3 +307,84 @@ def test_unknown_iter_precision_raises(package):
     # off the kernel path the field is not read, as in the reference
     plain = dataclasses.replace(cfg, use_pallas=False, adaptive_rho=True)
     assert bool(torch.isfinite(tqp.solve(tq, plain).x).all())
+
+
+class _permuted_products:
+    """Inside the block the plain loop's products (``cuda_qp._vm``,
+    ``_mv``) sum in another order, a fixed permutation of the summed index
+    per length from ``seed``: a stand-in for a kernel's summation order."""
+
+    def __init__(self, seed):
+        self.seed = seed
+
+    def __enter__(self):
+        vm, mv = self.saved = (cuda_qp._vm, cuda_qp._mv)
+        gen, perms = torch.Generator().manual_seed(self.seed), {}
+
+        def perm(k):
+            if k not in perms:
+                perms[k] = torch.randperm(k, generator=gen)
+            return perms[k]
+
+        cuda_qp._vm = lambda v, M: vm(v[..., perm(v.shape[-1])],
+                                      M[..., perm(v.shape[-1]), :])
+        cuda_qp._mv = lambda M, v: mv(M[..., perm(v.shape[-1])],
+                                      v[..., perm(v.shape[-1])])
+
+    def __exit__(self, *exc):
+        cuda_qp._vm, cuda_qp._mv = self.saved
+
+
+@pytest.mark.parametrize("kernel", ["admm", "fused_admm"])
+def test_sharp_check_limits_lie_between_order_and_precision(kernel):
+    """``chip_smoke.py``'s one-iteration check on random QPs (its
+    ``SHARP`` limits) accepts the plain version in three other summation
+    orders and refuses every other precision, "highest" included, for B1
+    and for B4's ADMM phase."""
+    run_k, run_p = chip_smoke.sharp_runs(tqp, cuda_qp, cuda_qp_fused, kernel,
+                                         device="cpu")
+    plain = {prec: run_p(prec) for prec in chip_smoke.VARIANTS}
+    for seed in range(3):
+        with _permuted_products(seed):
+            xs = {prec: run_k(prec) for prec in cuda_qp.ITER_PRECISIONS}
+        for prec in chip_smoke.VARIANTS:
+            assert not torch.equal(xs[prec], plain[prec])
+            ok, detail, _ = chip_smoke.sharp_agrees(prec, xs, plain[prec])
+            assert ok, (seed, prec, detail)
+
+
+def test_sharp_check_refuses_a_dropped_cross_term(monkeypatch):
+    """A bf16x3 product without v_lo . M_hi (or without v_hi . M_lo) fails
+    ``chip_smoke.py``'s one-iteration check."""
+    run_k, run_p = chip_smoke.sharp_runs(tqp, cuda_qp, cuda_qp_fused, "admm",
+                                         device="cpu")
+    px = run_p("bf16x3")
+    at = cuda_qp._at
+    for keep in (lambda hl, lh: hl, lambda hl, lh: lh):
+        def dropped(prod, v, Mf, prec, keep=keep):
+            if prec != "bf16x3":
+                return at(prod, v, Mf, prec)
+            vh, vl = cuda_qp.split_bf16(v)
+            return prod(vh, Mf[0]) + keep(prod(vh, Mf[1]), prod(vl, Mf[0]))
+
+        with monkeypatch.context() as mp:
+            mp.setattr(cuda_qp, "_at", dropped)
+            xs = {prec: run_k(prec) for prec in cuda_qp.ITER_PRECISIONS}
+        assert not chip_smoke.sharp_agrees("bf16x3", xs, px)[0]
+
+
+def test_tolerance_gate_refuses_another_precision():
+    """``chip_smoke.tolerance_agrees`` passes a kernel that solves as its
+    plain version does and refuses one whose iterations are those of
+    another precision (here "highest" against "bf16x3" on random QPs)."""
+    tq = _random_set()
+    cfg = dataclasses.replace(BASE, pallas_iter_precision="bf16x3",
+                              rescue_max_iter=0)
+    arrays, kw = _b1_args(tq, cfg)
+    p = cuda_qp.admm_iterate(*arrays, **kw)
+    assert chip_smoke.tolerance_agrees(p[5], p[4], p[5], p[4])[0]
+    with _permuted_products(0):
+        q = cuda_qp.admm_iterate(*arrays, **kw)
+    assert chip_smoke.tolerance_agrees(q[5], q[4], p[5], p[4])[0]
+    h = cuda_qp.admm_iterate(*arrays, **dict(kw, iter_precision="highest"))
+    assert not chip_smoke.tolerance_agrees(h[5], h[4], p[5], p[4])[0]
