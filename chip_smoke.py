@@ -13,10 +13,13 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
 2. drives the main path at full width -- the batch-256 LMPC control step
    (``SolverConfig.throughput()``, ``LMPCConfig(max_laps=12, max_pts=1024,
    model_pts=512)``, N=14) seeded from one PID stage of the port's own
-   ``run_experiment(stages="pid", batch=1)`` -- for a warm-up chunk and a
-   timed chunk of 50 steps, with the launch counters of the three kernels
-   reset just before and read just after (each must be > 0), and B1's
-   per-layout counters: resident launches > 0 and no scenario streamed;
+   ``run_experiment(stages="pid", batch=1)`` -- through the bench's
+   headline (``runtime/bench.time_chunks``): a warm-up chunk and 3 timed
+   chunks of 50 steps, the best one reported, each timed chunk holding B1,
+   B2 and B3 to one launch a step and no scenario streamed; the launch
+   counters of the three kernels are reset just before and read just
+   after (each must be > 0), and B1's per-layout counters: resident
+   launches > 0 and no scenario streamed;
 3. holds B1-B3 against their plain PyTorch versions on the card at the
    main path's shapes (the FTOCPs, lap store and plant states of the batch
    just driven): rollout |dx| < 1e-4, sys-ID |dA|,|dB|,|dC| < 1e-3 (also on
@@ -110,13 +113,22 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    |sum(lambda) - 1| <= ``pri_res``;
 9. the main path at each lowered iteration precision: ``main_path.setup``
    with ``throughput()`` and ``pallas_iter_precision`` replaced, 20 steps
-   after the PID seed (then 5 with ``pallas_fused_ns``, B4), counters reset
-   just before and read just after: prints solves/s, the rejected share,
+   after phase 2's PID seed (then 5 with ``pallas_fused_ns``, B4), counters
+   reset just before and read just after: prints solves/s, the rejected share,
    the solves not at tolerance and ADMM iterations mean / p50 / p99, and
    requires finite states and inputs, B1 (B4) launched at that precision
    on every step and no scenario streamed (the rejected share is the
    card's verdict, not a gate);
-10. prints one JSON line of kernel summaries (B1 and B4 also at each
+10. the bench's closed-loop quality gate (``runtime/bench.quality_gate``)
+   at its defaults on the main path's preset: 12 laps seeded from phase
+   2's PID lap, then 8 from ``fixtures/converged_laps_v1.npz``, batch 8,
+   chunk 100, at most 400 steps a lap; every per-lap list is printed, the
+   gate must pass, B1-B3 must launch in it and no scenario may stream;
+   then the ``throughput_max()`` secondary (``bench.secondary``: its timed
+   chunks on the kernels, no error); then the converged phase again at
+   the round-3 preset (``rescue_max_iter=0``), which must fail one of the
+   gate's criteria (the gate can fail). Each phase's wall is printed;
+11. prints one JSON line of kernel summaries (B1 and B4 also at each
    lowered precision, their launches from phase 9; a variant's
    ``max_abs_err`` is that of the random-QP check, ``ftocp_max_abs_err``
    that of the FTOCP check; its bound prices the main loop's products at
@@ -133,9 +145,9 @@ import json
 import pathlib
 import shutil
 import statistics
-import subprocess
 import sys
 import time
+import traceback
 
 FAILED = []
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
@@ -796,10 +808,10 @@ def b4_precisions(torch, qp_mod, cuda_qp, cuda_qp_fused, kernel_bench, f,
 
 
 def precision_paths(torch, main_path, cuda_qp, cuda_qp_fused, counters,
-                    layouts, B, steps=20, fused_steps=5):
+                    layouts, B, pid, steps=20, fused_steps=5):
     """Phase 9: the batch-256 main path at each lowered precision
     (``throughput()`` with ``pallas_iter_precision`` replaced), ``steps``
-    steps after the PID seed, and ``fused_steps`` with B4
+    steps after phase 2's PID seed ``pid``, and ``fused_steps`` with B4
     (``pallas_fused_ns``), counters reset just before each run and read
     just after. Gates: finite states and inputs, B1 (then B4) launched at
     that precision on every step, no scenario streamed; the rejected share
@@ -814,7 +826,8 @@ def precision_paths(torch, main_path, cuda_qp, cuda_qp_fused, counters,
         for fused, n_steps in ((False, steps), (True, fused_steps)):
             tag = f"main_path_{'fused_' if fused else ''}{prec}"
             mp, state, plant, _ = main_path.setup(
-                B, solver=dataclasses.replace(solver, pallas_fused_ns=fused))
+                B, solver=dataclasses.replace(solver, pallas_fused_ns=fused),
+                pid=pid)
             plist = (cuda_qp.precision_launches,
                      cuda_qp_fused.precision_launches)
             for c in (*counters, *layouts, *(q for d in plist
@@ -851,6 +864,62 @@ def precision_paths(torch, main_path, cuda_qp, cuda_qp_fused, counters,
                   lay["admm_stream"] == 0 and lay["admm_streamed"] == 0
                   and lay["fused_admm_streamed"] == 0, f"({lay})")
     return launches
+
+
+def gate_phase(torch, bench, mp, pid, counters, layouts, B, steps):
+    """Phase 10: the bench's quality gate at its defaults on the main
+    path's preset, with B1-B3 launched in it and no scenario streamed;
+    the ``throughput_max()`` secondary; and the converged phase again at
+    the round-3 preset (``rescue_max_iter=0``), which must fail it."""
+    def log(m):
+        print(f"[chip_smoke]   {m}", flush=True)
+
+    pid_lap = (pid.pid.x[0], pid.pid.u[0], pid.pid.x_glob[0],
+               pid.pid.steps[0])
+    for c in counters + layouts:
+        c.reset()
+    t0 = time.time()
+    q = bench.quality_gate(mp.cfg, mp.trk, mp.vp, pid_lap, log=log)
+    lay = {c.name: count(c) for c in layouts}
+    launches = {c.name: c.n for c in counters}
+    print(f"[chip_smoke] quality gate ({time.time() - t0:.1f} s, batch "
+          f"{q['batch']}): {json.dumps(q)}; launches {launches}, B1 layouts "
+          f"and streamed scenarios {lay}")
+    check("quality_gate_pass", q["pass"],
+          f"({[k for k, v in q.items() if v is False]} failed)")
+    check("quality_gate_used_kernels",
+          all(launches[k] > 0 for k in ("admm", "sysid", "rollout")),
+          f"({launches})")
+    check("quality_gate_no_scenario_streamed",
+          lay["admm_stream"] == 0 and lay["admm_streamed"] == 0, f"({lay})")
+
+    t0 = time.time()
+    try:
+        sec = bench.secondary(B, steps, pid, log=log)
+        print(f"[chip_smoke] throughput_max secondary: "
+              f"{sec.solves_per_s:.1f} solves/s (batch {B}, best of "
+              f"{[round(t, 3) for t in sec.rep_s]} s), ADMM iters mean "
+              f"{float(sec.iters.mean()):.2f}, rejected {sec.rejected}, "
+              f"each timed chunk's counts {sec.counts} "
+              f"({time.time() - t0:.1f} s)")
+        check("secondary_runs_on_the_kernels", True)
+    except Exception as e:  # noqa: BLE001 - the bench's max_preset_error
+        traceback.print_exc()
+        check("secondary_runs_on_the_kernels", False,
+              f"({type(e).__name__}: {e})")
+
+    t0 = time.time()
+    cfg3 = dataclasses.replace(mp.cfg, solver=dataclasses.replace(
+        mp.cfg.solver, rescue_max_iter=0))
+    (c_steps, c_rej, c_unc), seed_mean = bench.converged_laps(
+        cfg3, mp.trk, mp.vp, log=log)
+    crit = bench.converged_criteria(c_steps, c_rej, c_unc, q["batch"],
+                                    seed_mean)
+    failing = [k for k in bench.CONV_KEYS if not crit[k]]
+    print(f"[chip_smoke] round-3 preset (rescue_max_iter=0), converged "
+          f"phase ({time.time() - t0:.1f} s): {json.dumps(crit)}")
+    check("round3_preset_fails_the_gate", bool(failing),
+          f"(failing: {failing})")
 
 
 def load_oracle(name: str):
@@ -1044,6 +1113,7 @@ def main() -> int:
     from racinglmpc_tpu_torch.ops import (cuda_build, cuda_qp, cuda_qp_fused,
                                           cuda_rollout, cuda_sysid)
     from racinglmpc_tpu_torch.ops import qp as qp_mod
+    from racinglmpc_tpu_torch.runtime import bench
     from racinglmpc_tpu_torch.runtime import experiment as exp
     from racinglmpc_tpu_torch.runtime import kernel_bench, main_path
     from racinglmpc_tpu_torch.utils.config import (LMPCConfig, SimConfig,
@@ -1057,11 +1127,21 @@ def main() -> int:
     layouts = (*cuda_qp.layout_launches.values(), cuda_qp.streamed,
                cuda_qp_fused.streamed)
 
+    phase_walls = {}
+    current = [None, time.time()]
+
+    def phase(name):
+        """Print the wall of the phase that ends here; start ``name``."""
+        now = time.time()
+        if current[0] is not None:
+            phase_walls[current[0]] = round(now - current[1], 1)
+            print(f"[chip_smoke] phase {current[0]} wall "
+                  f"{phase_walls[current[0]]} s", flush=True)
+        current[:] = [name, now]
+
     # ---- phase 1: device, build ------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    phase(1)
+    smi = bench.card()
     print(f"[chip_smoke] card: {smi}")
     print(f"[chip_smoke] python {sys.version.split()[0]} torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
@@ -1077,6 +1157,7 @@ def main() -> int:
     check("tf32_off", tf32 == (False, False))
 
     # ---- phase 2: main path: PID seed stage, batch-256 LMPC step ----------
+    phase(2)
     for c in counters:
         c.reset()
     t0 = time.time()
@@ -1088,30 +1169,43 @@ def main() -> int:
     check("pid_stage_used_rollout_kernel", cuda_rollout.launches.n > 0)
     cfg, trk, table, vp, ctrl = mp.cfg, mp.trk, mp.table, mp.vp, mp.ctrl
 
+    # the bench's headline: a warm-up chunk, then 3 timed chunks, each
+    # holding B1-B3 to one launch a step and no scenario streamed
     for c in counters + layouts:
         c.reset()
-    t0 = time.time()
-    state, plant = main_path.run_chunk(mp, state, plant, STEPS)[:2]
-    torch.cuda.synchronize()
-    print(f"[chip_smoke] warm-up chunk ({STEPS} steps): "
-          f"{time.time() - t0:.2f} s")
-    t0 = time.time()
-    state, plant, iters, rej, unc = main_path.run_chunk(mp, state, plant,
-                                                        STEPS)
-    torch.cuda.synchronize()
-    dt_chunk = time.time() - t0
+    try:
+        head = bench.time_chunks(
+            mp, state, plant, steps=STEPS, reps=3,
+            log=lambda m: print(f"[chip_smoke]   {m}", flush=True))
+    except bench.KernelPathError as e:
+        check("main_path_on_the_kernels_every_step", False, f"({e})")
+        raise
     launches = {c.name: c.n for c in counters}
     lay = {c.name: count(c) for c in layouts}
-    it = iters.float().cpu()
-    solves = B * STEPS
-    sps = solves / dt_chunk
-    unc_n = int(unc)
-    print(f"[chip_smoke] main path: {sps:.1f} solves/s (batch {B}, "
-          f"{STEPS} steps in {dt_chunk:.3f} s), ADMM iters mean "
+    it = torch.from_numpy(head.iters).float()
+    print(f"[chip_smoke] main path: {head.solves_per_s:.1f} solves/s (batch "
+          f"{B}, best of {len(head.rep_s)} chunks of {STEPS} steps: "
+          f"{[round(t, 3) for t in head.rep_s]} s), ADMM iters mean "
           f"{float(it.mean()):.2f} p50 {float(it.quantile(0.5)):.0f} "
-          f"p99 {float(it.quantile(0.99)):.0f}, rejected {int(rej)}, "
-          f"not solved to tolerance {unc_n} of {solves}, launches "
-          f"{launches}, B1 layouts and streamed scenarios {lay}")
+          f"p99 {float(it.quantile(0.99)):.0f}, rejected {head.rejected}, "
+          f"not solved to tolerance {head.unsolved} of {it.numel()}, "
+          f"launches {launches}, B1 layouts and streamed scenarios {lay}, "
+          f"each timed chunk's counts {head.counts}")
+    for r, ch in enumerate(head.chunks):
+        ci = ch.iters.float().cpu()
+        print(f"[chip_smoke]   timed chunk {r}: ADMM iters mean "
+              f"{float(ci.mean()):.2f} p50 {float(ci.quantile(0.5)):.0f} "
+              f"p99 {float(ci.quantile(0.99)):.0f}, rejected "
+              f"{int(ch.rejected)}, not solved to tolerance "
+              f"{int(ch.unsolved)} of {ci.numel()}")
+    # the solved-share check below and phase 3's kernel checks hold the
+    # first timed chunk (steps 51-100), the chunk earlier slices timed: the
+    # later chunks reach the harder FTOCPs of steps 101-200, on which the
+    # reference's own float32 path misses the tolerance more often too
+    first = head.chunks[0]
+    state, plant = first.state, first.plant
+    solves = B * STEPS
+    unc_n = int(first.unsolved)
     for name, n in launches.items():
         if name != "fused_admm":      # B4 is off on the main path
             check(f"main_path_launched_{name}", n > 0, f"({n})")
@@ -1125,6 +1219,7 @@ def main() -> int:
     kernels = []
 
     # ---- phase 3: B1-B3 against their plain versions ----------------------
+    phase(3)
     # B3: plant rollout on the batch's current states and inputs
     u = state.u_old.contiguous()
 
@@ -1344,6 +1439,7 @@ def main() -> int:
               f"{kinfo['launches']} launches on the main path")
 
     # ---- phase 4: closed loop, all four stages -----------------------------
+    phase(4)
     loop_cfg = exp.ExperimentConfig(
         stage_steps=450, n_lmpc_laps=4, lap_max_steps=500, lap_chunk=125,
         solver=SolverConfig.throughput(),
@@ -1377,12 +1473,14 @@ def main() -> int:
     loop_steps = res.lap_steps
 
     # ---- phase 5: the MPC stages through the presets ----------------------
+    phase(5)
     runs = stage_runs(torch, qp_mod, counters + layouts, cuda_qp,
                       cuda_qp_fused)
     fused_launches = sum(r["launches"]["fused_admm"] for r in runs.values()
                          if r["fused"])
 
     # ---- phase 6: B4 against its plain version; structured inverse -------
+    phase(6)
     fused_variants, fused = fused_phase(torch, qp_mod, cuda_qp,
                                         cuda_qp_fused, runs, trk,
                                         fused_launches)
@@ -1391,6 +1489,7 @@ def main() -> int:
     structured_phase(torch, qp_mod, runs["config3_ltv/max"], trk)
 
     # ---- phase 7: checkpoint and resume -----------------------------------
+    phase(7)
     ck = pathlib.Path(__file__).resolve().parent / "build" / "smoke_ckpt"
     shutil.rmtree(ck, ignore_errors=True)
     t0 = time.time()
@@ -1409,6 +1508,7 @@ def main() -> int:
     check("resume_reproduces_uninterrupted", res.resume_lap == 2 and same)
 
     # ---- phase 8: the mesh and the giant path ----------------------------
+    phase(8)
     import numpy as np
 
     mesh = mesh_phase(torch, exp, loop_cfg, loop_steps, trk, counters,
@@ -1419,11 +1519,19 @@ def main() -> int:
         mesh.close()
 
     # ---- phase 9: the main path at each lowered iteration precision ------
+    phase(9)
     prec_launches = precision_paths(torch, main_path, cuda_qp, cuda_qp_fused,
-                                    counters, layouts, B)
+                                    counters, layouts, B, pid)
     for kinfo in variants:
         kinfo["launches"] = prec_launches[kinfo["name"]]
     kernels += variants
+
+    # ---- phase 10: the bench's quality gate and secondary ----------------
+    phase(10)
+    gate_phase(torch, bench, mp, pid, counters, layouts, B, STEPS)
+    phase(None)
+    print(f"[chip_smoke] phase walls {phase_walls} s, total "
+          f"{sum(phase_walls.values()):.1f} s")
 
     if FAILED:
         print(f"[chip_smoke] FAILED: {', '.join(FAILED)}", file=sys.stderr)

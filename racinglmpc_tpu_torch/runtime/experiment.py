@@ -47,7 +47,7 @@ import json
 import os
 import sys
 import time
-from typing import List, NamedTuple, Optional
+from typing import Any, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -95,6 +95,7 @@ class StageResult(NamedTuple):
     mask: torch.Tensor     # (B, T)
     steps: torch.Tensor    # (B,)
     plant_final: PlantState
+    collected: Any = None  # the lap runner's collect_fn archive, (B, T, ...)
 
 
 class ExperimentResult(NamedTuple):
@@ -143,7 +144,8 @@ def initial_plant(batch: int, dtype=torch.float32, device="cuda") -> PlantState:
 
 def _stage_result(res: loop_mod.LapResult) -> StageResult:
     return StageResult(x=res.x, u=res.u, x_glob=res.x_glob, mask=res.mask,
-                       steps=res.steps, plant_final=res.plant_final)
+                       steps=res.steps, plant_final=res.plant_final,
+                       collected=res.collected)
 
 
 def run_lap_chunked(runner, ctrl_state, plant: PlantState, max_steps: int,
@@ -151,7 +153,8 @@ def run_lap_chunked(runner, ctrl_state, plant: PlantState, max_steps: int,
     """One lap in ``chunk``-step pieces with a host early exit (over all
     ranks of ``mesh``, so every rank runs the same chunks).
     ``runner(ctrl_state, plant, done, step0) -> LapResult``. Returns
-    (StageResult padded to ``pad_to`` steps, ctrl_state)."""
+    (StageResult padded to ``pad_to`` steps, ctrl_state); the chunks'
+    ``collected`` archives are joined and padded alike."""
     B = plant.x.shape[0]
     done = torch.zeros((B,), dtype=torch.bool, device=plant.x.device)
     parts = []
@@ -165,19 +168,23 @@ def run_lap_chunked(runner, ctrl_state, plant: PlantState, max_steps: int,
                 else mesh_mod.all_ranks(done, mesh)):
             break
 
-    def cat_pad(name):
-        a = torch.cat([getattr(r, name) for r in parts], 1)
+    def pad(a):
         if a.shape[1] < pad_to:
-            pad = torch.zeros((B, pad_to - a.shape[1]) + a.shape[2:],
-                              dtype=a.dtype, device=a.device)
-            a = torch.cat([a, pad], 1)
+            zeros = torch.zeros((B, pad_to - a.shape[1]) + a.shape[2:],
+                                dtype=a.dtype, device=a.device)
+            a = torch.cat([a, zeros], 1)
         return a[:, :pad_to]
+
+    def cat_pad(name):
+        return tree_map(lambda *ts: pad(torch.cat(ts, 1)),
+                        *[getattr(r, name) for r in parts])
 
     mask = cat_pad("mask")
     return StageResult(x=cat_pad("x"), u=cat_pad("u"),
                        x_glob=cat_pad("x_glob"), mask=mask,
                        steps=mask.sum(1).to(torch.int32),
-                       plant_final=plant), ctrl_state
+                       plant_final=plant,
+                       collected=cat_pad("collected")), ctrl_state
 
 
 def run_experiment(cfg: ExperimentConfig = ExperimentConfig(), *,

@@ -6,7 +6,8 @@ new arc length exceeds the track length. Done scenarios are frozen by a
 mask; the trajectory excludes the crossing state, which is returned with
 its arc length reduced by one track length. ``done0``/``step0`` resume a
 lap in chunks: noise is drawn by the global step index, so a chunked run
-equals one long run.
+equals one long run. ``collect_fn`` archives a value of each step's new
+controller state (the reference's predicted-trajectory store).
 
 A controller is ``step(ctrl_state, x (B, 6), draws) -> (ctrl_state, u)``;
 ``noise(t)`` returns ``(controller draws, plant draws (B, 3))`` for global
@@ -23,7 +24,7 @@ from racinglmpc_tpu_torch.models.dynamics import PlantState
 from racinglmpc_tpu_torch.models.track import Track, TrackTable, track_table
 from racinglmpc_tpu_torch.ops import cuda_rollout
 from racinglmpc_tpu_torch.utils.config import SimConfig, VehicleParams
-from racinglmpc_tpu_torch.utils.batched import bwhere
+from racinglmpc_tpu_torch.utils.batched import bwhere, tree_map
 
 Noise = Callable[[int], tuple]
 
@@ -38,6 +39,7 @@ class LapResult(NamedTuple):
     ctrl_state: Any
     plant_final: PlantState  # raw plant state (chunk resumption)
     done: torch.Tensor     # (B,) bool
+    collected: Any = None  # collect_fn's leaves stacked to (B, T, ...)
 
 
 def gaussian_noise(batch: int, ctrl_dims: int, sim_cfg: SimConfig,
@@ -90,19 +92,28 @@ def run_lap(controller_step, ctrl_state, plant: PlantState, *, trk: Track,
             vp: VehicleParams, sim_cfg: SimConfig, max_steps: int,
             multi_lap: bool = False, done0: Optional[torch.Tensor] = None,
             step0: int = 0, noise: Optional[Noise] = None,
-            table: Optional[TrackTable] = None) -> LapResult:
+            table: Optional[TrackTable] = None,
+            collect_fn: Optional[Callable[[Any], Any]] = None) -> LapResult:
     """Run one batched closed-loop lap (or ``max_steps`` steps when
-    ``multi_lap``)."""
+    ``multi_lap``).
+
+    ``collect_fn(ctrl_state)`` is called on each step's new controller
+    state, before done scenarios are frozen (reference ``loop.py:101``),
+    e.g. ``lambda st: (st.x_pred, st.u_pred)``; each leaf of its result
+    (a tensor, or tuples, NamedTuples and lists of them) is stacked on a
+    time axis after the batch axis into ``LapResult.collected``."""
     L = trk.total_len
     B = plant.x.shape[0]
     table = table if table is not None else track_table(trk)
     done = (torch.zeros((B,), dtype=torch.bool, device=plant.x.device)
             if done0 is None else done0)
-    xs, us, xgs, masks = [], [], [], []
+    xs, us, xgs, masks, extras = [], [], [], [], []
     for t in range(step0, step0 + max_steps):
         c_draw, p_draw = noise(t) if noise is not None else (None, None)
         new_ctrl, u = controller_step(ctrl_state, plant.x, c_draw)
         new_plant = plant_step(plant, u, vp, trk, sim_cfg, p_draw, table)
+        if collect_fn is not None:
+            extras.append(collect_fn(new_ctrl))
         xs.append(plant.x)
         us.append(u)
         xgs.append(plant.x_glob)
@@ -119,4 +130,6 @@ def run_lap(controller_step, ctrl_state, plant: PlantState, *, trk: Track,
         x=torch.stack(xs, 1), u=torch.stack(us, 1), x_glob=torch.stack(xgs, 1),
         mask=mask, steps=mask.sum(1).to(torch.int32),
         x_final=PlantState(x=plant.x - shift, x_glob=plant.x_glob),
-        ctrl_state=ctrl_state, plant_final=plant, done=done)
+        ctrl_state=ctrl_state, plant_final=plant, done=done,
+        collected=(tree_map(lambda *ts: torch.stack(ts, 1), *extras)
+                   if extras else None))

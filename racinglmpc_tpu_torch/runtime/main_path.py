@@ -10,8 +10,7 @@ three CUDA kernels engaged on a CUDA device.
 
 On a card, ``python -m racinglmpc_tpu_torch.runtime.main_path`` profiles
 a few steps (``torch.profiler``: kernel time by name, device busy share);
-with ``--time`` it prints the solves/s of a timed 50-step chunk after a
-50-step warm-up, as ``chip_smoke.py`` measures it.
+``python -m racinglmpc_tpu_torch.runtime.bench`` times it.
 """
 from __future__ import annotations
 
@@ -31,13 +30,15 @@ from racinglmpc_tpu_torch.utils.config import (LMPCConfig, SimConfig,
                                                SolverConfig, VehicleParams)
 
 
-def config(solver: SolverConfig = None) -> exp.ExperimentConfig:
+def config(solver: SolverConfig = None,
+           pallas_rollout: bool = True) -> exp.ExperimentConfig:
     """The main path's configuration; ``solver`` replaces its
     ``SolverConfig.throughput()`` (e.g. at another
-    ``pallas_iter_precision``)."""
+    ``pallas_iter_precision``); ``pallas_rollout=False`` steps the plant
+    without the rollout kernel."""
     return exp.ExperimentConfig(
         stage_steps=450, solver=solver or SolverConfig.throughput(),
-        sim=SimConfig(use_pallas_rollout=True),
+        sim=SimConfig(use_pallas_rollout=pallas_rollout),
         lmpc=LMPCConfig(max_laps=12, max_pts=1024, model_pts=512,
                         use_pallas_sysid=True))
 
@@ -62,13 +63,16 @@ class Chunk(NamedTuple):
 
 
 def setup(batch: int = 256, device="cuda", seed: int = 0,
-          solver: SolverConfig = None):
+          solver: SolverConfig = None, pallas_rollout: bool = True,
+          pid: exp.ExperimentResult = None):
     """Returns (MainPath, seeded LMPC state, initial plant, PID result);
-    ``solver``: see :func:`config`."""
-    cfg = config(solver)
+    ``solver``, ``pallas_rollout``: see :func:`config`; ``pid``: an earlier
+    setup's PID result to seed from instead of running the PID stage."""
+    cfg = config(solver, pallas_rollout)
     trk = make_track(device=device)
-    pid = exp.run_experiment(cfg, batch=1, stages="pid", trk=trk,
-                             device=device, seed=seed)
+    if pid is None:
+        pid = exp.run_experiment(cfg, batch=1, stages="pid", trk=trk,
+                                 device=device, seed=seed)
     xs, us, xgs = (a.expand(batch, -1, -1) for a in
                    (pid.pid.x, pid.pid.u, pid.pid.x_glob))
     steps = pid.pid.steps.expand(batch)
@@ -128,28 +132,9 @@ def profile(batch: int, steps: int) -> None:
     print(events.table(sort_by="self_device_time_total", row_limit=25))
 
 
-def timed(batch: int, steps: int) -> None:
-    mp, state, plant, _ = setup(batch)
-    state, plant = run_chunk(mp, state, plant, steps)[:2]   # warm-up
-    torch.cuda.synchronize()
-    t0 = time.time()
-    out = run_chunk(mp, state, plant, steps)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    print(f"{batch * steps / wall:.1f} solves/s (batch {batch}, {steps} "
-          f"steps in {wall:.3f} s), ADMM iters mean "
-          f"{float(out.iters.float().mean()):.2f}")
-
-
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=256)
-    ap.add_argument("--steps", type=int, default=None,
-                    help="profiled steps (10) or timed steps (50)")
-    ap.add_argument("--time", action="store_true",
-                    help="time a chunk instead of profiling")
+    ap.add_argument("--steps", type=int, default=10, help="profiled steps")
     a = ap.parse_args()
-    if a.time:
-        timed(a.batch, a.steps or 50)
-    else:
-        profile(a.batch, a.steps or 10)
+    profile(a.batch, a.steps)

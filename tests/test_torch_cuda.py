@@ -502,6 +502,19 @@ def test_fused_admm_matches_plain(stages, stage):
                                          *args[6:], **kw)
 
 
+def test_bench_headline_launches_each_kernel_once_a_step(setup):
+    """The bench's headline at batch 16, 5 steps a chunk: B1, B2 and B3
+    launch once a step and no scenario streams (``time_chunks`` raises
+    otherwise)."""
+    from racinglmpc_tpu_torch.runtime import bench
+
+    mp, st, plant, _ = main_path.setup(B, device="cuda")
+    out = bench.time_chunks(mp, st, plant, steps=5, reps=2)
+    assert out.counts == [{"admm": 5, "admm_layouts": 5, "sysid": 5,
+                           "rollout": 5, "admm_streamed": 0}] * 2
+    assert out.solves_per_s > 0 and out.iters.shape == (2 * 5 * B,)
+
+
 # ---- the mesh and the giant path on a one-rank NCCL group ---------------
 
 @pytest.fixture(scope="module")

@@ -34,14 +34,14 @@ def test_import_leaves_jax_out():
 
 
 def test_slice_modules_are_covered():
-    """The modules of the four-stage slice and of the mesh path are among
-    those imported above (and so checked for JAX)."""
+    """The modules of the four-stage slice, of the mesh path and of the
+    bench are among those imported above (and so checked for JAX)."""
     mods = set(_modules())
     for m in ("controllers.mpc", "ops.cuda_qp_fused", "ops.kkt_band",
               "runtime.checkpoint", "runtime.metrics", "runtime.presets",
               "runtime.experiment", "parallel.mesh", "ops.qp_sharded",
               "controllers.giant_ftocp", "viz.plots",
-              "runtime.dump_scenario"):
+              "runtime.dump_scenario", "runtime.bench", "runtime.native"):
         assert f"racinglmpc_tpu_torch.{m}" in mods, m
     assert (PKG / "csrc" / "cuda_qp_fused.cu").exists()
     assert (PKG / "csrc" / "qp_common.cuh").exists()
