@@ -36,7 +36,14 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    a forced rho-escalation
    rescue with the same rescued flags and iteration counts as the plain
    version on every lane; bit-identical results from two resident calls
-   and from the two layouts; the shared-memory plan against the kernel
+   and from the two layouts; the same on the FTOCPs after the last timed
+   chunk (step 200), but at tolerance solves and mean iterations within
+   2% of the plain version's, and under the forced rescue the plain
+   version's count on every lane but those whose count it does not
+   reproduce itself in another summation order (the lane alone on the
+   CPU, one thread), at most 2% of the batch (``last_chunk_b1``, ROADMAP
+   C7);
+   the shared-memory plan against the kernel
    source's count; times B1 (CUDA events, median of 20 launches after
    warm-up; its layouts in turns: resident, stream, stream, resident);
    then B1 at the lowered iteration precisions ("bf16x3", "default"; the
@@ -1102,6 +1109,78 @@ def giant_phase(torch, np, exp):
           and abs(float(lam.sum()) - 1.0) <= pri)
 
 
+def last_chunk_b1(torch, cuda_qp, rescue_replay, ctrl, chunk, solver, tag):
+    """Phase 3, B1 on the FTOCPs after the last timed chunk ``chunk`` (a
+    :class:`main_path.Chunk`), whose solves reach max_iter most often: 16
+    fixed iterations against the plain version in both layouts, at
+    tolerance as the plain version's (:func:`tolerance_agrees`), two calls
+    and the two layouts bit-identical, and the forced rescue: every lane
+    rescued, the plain version's flags, and its iteration count on every
+    lane where that count does not hang on the summation order. A lane
+    whose exit margin comes within the order's noise of the threshold
+    leaves where the order lets it (ROADMAP C7), so on a lane whose count
+    differs the plain version runs again, the lane alone on the CPU with
+    one thread: if it gives the card's count, the kernel must too; if not,
+    the lane's count is the order's, and such lanes may be at most
+    ``TOLERANCE_SHARE`` of the batch (or ``TOLERANCE_SOLVES``)."""
+    st = chunk.state
+    qp = ctrl.build_qp(st, chunk.plant.x)[0]
+    warm = (st.warm_x, st.warm_y)
+    fixed = dataclasses.replace(solver, eps_abs=0.0, eps_rel=0.0,
+                                max_iter=16, check_every=16,
+                                rescue_max_iter=0)
+    f_args, f_kw = rescue_replay.admm_args(qp, fixed, warm, st.fac)
+    t_args, t_kw = rescue_replay.admm_args(qp, solver, warm, st.fac)
+    r_args, r_kw = rescue_replay.admm_args(
+        qp, rescue_replay.forced_rescue(solver), warm, None)
+    pf = cuda_qp.admm_iterate_plain(*f_args, **f_kw)
+    pt = cuda_qp.admm_iterate_plain(*t_args, **t_kw)
+    pr = cuda_qp.admm_iterate_plain(*r_args, **r_kw)
+    B = pr[4].numel()
+    alone, outs = {}, {}
+    for name in cuda_qp.LAYOUTS:
+        k = cuda_qp.admm_iterate(*f_args, **f_kw, layout=name)
+        err = float((k[0] - pf[0]).abs().max())
+        check(f"admm_{name}_fixed16_vs_plain_{tag}", err < 3e-2,
+              f"(max |dx| {err:.2e})")
+        kt = cuda_qp.admm_iterate(*t_args, **t_kw, layout=name)
+        ok, detail = tolerance_agrees(kt[5], kt[4], pt[5], pt[4])
+        check(f"admm_{name}_tolerance_as_plain_{tag}", ok, detail)
+        kr = cuda_qp.admm_iterate(*r_args, **r_kw, layout=name)
+        diff = (kr[4] != pr[4]).nonzero()[:, 0].tolist()
+        for i in diff:
+            if i not in alone:
+                one = [a[i:i + 1].cpu() for a in r_args]
+                threads = torch.get_num_threads()
+                torch.set_num_threads(1)
+                try:
+                    alone[i] = int(cuda_qp.admm_iterate_plain(
+                        *one, **r_kw)[4][0])
+                finally:
+                    torch.set_num_threads(threads)
+        flags = bool((kr[6] == pr[6]).all())
+        held = [i for i in diff if alone[i] == int(pr[4][i])]
+        order = [i for i in diff if i not in held]
+        check(f"admm_{name}_forced_rescue_{tag}",
+              bool(kr[6].all()) and flags and not held
+              and len(order) <= max(TOLERANCE_SHARE * B, TOLERANCE_SOLVES),
+              f"(rescued {int(kr[6].sum())}/{B}, flags equal {flags}, "
+              f"iteration counts equal on {B - len(diff)} of {B} lanes; "
+              f"each other lane (kernel, plain on the card, plain of the "
+              f"lane alone on the CPU): "
+              f"{[(i, int(kr[4][i]), int(pr[4][i]), alone[i]) for i in diff]}"
+              f"; the plain version reproduced its count on {held})")
+        outs[name] = (kt, kr)
+    k2 = cuda_qp.admm_iterate(*t_args, **t_kw)
+    check(f"admm_resident_same_bits_twice_{tag}",
+          all(bool(torch.equal(a, b)) for a, b in zip(outs["resident"][0],
+                                                       k2)))
+    check(f"admm_resident_same_bits_as_stream_{tag}", all(
+        bool(torch.equal(a, b)) for r, s in zip(outs["resident"],
+                                                 outs["stream"])
+        for a, b in zip(r, s)), "(at tolerance and under the forced rescue)")
+
+
 def main() -> int:
     import torch
 
@@ -1115,7 +1194,8 @@ def main() -> int:
     from racinglmpc_tpu_torch.ops import qp as qp_mod
     from racinglmpc_tpu_torch.runtime import bench
     from racinglmpc_tpu_torch.runtime import experiment as exp
-    from racinglmpc_tpu_torch.runtime import kernel_bench, main_path
+    from racinglmpc_tpu_torch.runtime import (kernel_bench, main_path,
+                                              rescue_replay)
     from racinglmpc_tpu_torch.utils.config import (LMPCConfig, SimConfig,
                                                    SolverConfig)
 
@@ -1198,14 +1278,18 @@ def main() -> int:
               f"p99 {float(ci.quantile(0.99)):.0f}, rejected "
               f"{int(ch.rejected)}, not solved to tolerance "
               f"{int(ch.unsolved)} of {ci.numel()}")
-    # the solved-share check below and phase 3's kernel checks hold the
-    # first timed chunk (steps 51-100), the chunk earlier slices timed: the
-    # later chunks reach the harder FTOCPs of steps 101-200, on which the
-    # reference's own float32 path misses the tolerance more often too
+    # the solved-share check and phase 3's kernel checks hold the FTOCPs
+    # after the first timed chunk (steps 51-100, where earlier slices timed
+    # one chunk); phase 3 holds B1 after the last one too. Over all timed
+    # chunks the share not at tolerance exceeds 10% (ROADMAP C6)
     first = head.chunks[0]
     state, plant = first.state, first.plant
     solves = B * STEPS
     unc_n = int(first.unsolved)
+    print(f"[chip_smoke] not solved to tolerance: {unc_n} of {solves} in "
+          f"the first timed chunk, {head.unsolved} of {it.numel()} "
+          f"({100 * head.unsolved / it.numel():.2f}%) in all "
+          f"{len(head.chunks)} (ROADMAP C6)")
     for name, n in launches.items():
         if name != "fused_admm":      # B4 is off on the main path
             check(f"main_path_launched_{name}", n > 0, f"({n})")
@@ -1335,12 +1419,9 @@ def main() -> int:
     # B1: the batch's own FTOCPs, prologue as in the solve
     qp, _, _, _ = ctrl.build_qp(state, plant.x)
     warm = (state.warm_x, state.warm_y)
-    names = ADMM_NAMES
 
     def admm_args(scfg, fac):
-        pro, Kinv1, _ = qp_mod.admm_inputs(qp, scfg, warm, fac)
-        kw = qp_mod.kernel_args(pro, Kinv1, scfg)
-        return [kw.pop(n) for n in names], kw
+        return rescue_replay.admm_args(qp, scfg, warm, fac)
 
     n, m = qp.q.shape[1], qp.l.shape[1]
     plan = cuda_qp.choose_layout(n, m)
@@ -1358,10 +1439,7 @@ def main() -> int:
                                 rescue_max_iter=0)
     f_args, f_kw = admm_args(fixed, state.fac)
     args, kw = admm_args(cfg.solver, state.fac)
-    rescue_cfg = dataclasses.replace(
-        cfg.solver, rho=1e-4, rho_eq_scale=1.0, max_iter=40,
-        check_every=10, scaling_iters=0, eps_abs=1e-4, eps_rel=1e-4,
-        rescue_max_iter=400, rescue_rho_scale=100.0)
+    rescue_cfg = rescue_replay.forced_rescue(cfg.solver)
     r_args, r_kw = admm_args(rescue_cfg, None)
     pf = cuda_qp.admm_iterate_plain(*f_args, **f_kw)
     p = cuda_qp.admm_iterate_plain(*args, **kw)
@@ -1404,6 +1482,8 @@ def main() -> int:
         bool(torch.equal(a, b)) for r, s in zip(outs["resident"],
                                                  outs["stream"])
         for a, b in zip(r, s)), "(at tolerance and under the forced rescue)")
+    last_chunk_b1(torch, cuda_qp, rescue_replay, ctrl, head.chunks[-1],
+                  cfg.solver, f"step{STEPS * (len(head.chunks) + 1)}")
     times = {name: [] for name in cuda_qp.LAYOUTS}
     for name in ("resident", "stream", "stream", "resident"):
         times[name].append(time_ms(torch, lambda: cuda_qp.admm_iterate(

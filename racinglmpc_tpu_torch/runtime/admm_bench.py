@@ -117,7 +117,7 @@ def _stored(kw: dict) -> dict:
 
 def save(path: str, batch: int = 256, steps: int = 100) -> None:
     from racinglmpc_tpu_torch.ops import qp as qp_mod
-    from racinglmpc_tpu_torch.runtime import main_path
+    from racinglmpc_tpu_torch.runtime import main_path, rescue_replay
 
     mp, st, plant, _ = main_path.setup(batch)
     st, plant = main_path.run_chunk(mp, st, plant, steps)[:2]
@@ -126,10 +126,7 @@ def save(path: str, batch: int = 256, steps: int = 100) -> None:
                                 max_iter=16, check_every=16,
                                 rescue_max_iter=0)
     # every lane rescued (chip_smoke.py phase 3's forced rescue)
-    rescue = dataclasses.replace(
-        mp.cfg.solver, rho=1e-4, rho_eq_scale=1.0, max_iter=40,
-        check_every=10, scaling_iters=0, eps_abs=1e-4, eps_rel=1e-4,
-        rescue_max_iter=400, rescue_rho_scale=100.0)
+    rescue = rescue_replay.forced_rescue(mp.cfg.solver)
     out = {}
     for key, scfg, fac in (("tolerance", mp.cfg.solver, st.fac),
                            ("fixed16", fixed, st.fac),

@@ -17,8 +17,11 @@ decides whether its number may stand as a headline at all.
         [--no-pallas-rollout] [--device cuda|cpu]
 
 prints exactly one JSON line: the root ``bench.py``'s fields, a metric name
-of its own (``lmpc_full_step_qp_solves_per_s_per_gpu``) and ``device``, the
-card's ``nvidia-smi`` name and power limit.
+of its own (``lmpc_full_step_qp_solves_per_s_per_gpu``), ``device`` (the
+card's ``nvidia-smi`` name and power limit) and the timed solves' own
+quality figure: how many were timed, rejected and not at tolerance
+(rejected included), and ``not_at_tolerance_ok``, that share within
+``NOT_AT_TOLERANCE``.
 
 No fallback. Without a CUDA device and without ``--device cpu`` it exits
 non-zero; on the CPU (the kernels' plain versions) it reports under
@@ -59,6 +62,8 @@ BASELINE_SOLVES_PER_S = 45.0   # the reference's single-problem CPU solver
 METRIC = "lmpc_full_step_qp_solves_per_s_per_gpu"
 CPU_METRIC = "lmpc_full_step_qp_solves_per_s_cpu_plain_versions"
 UNIT = "solves/s (N=14, full control step incl. sys-ID)"
+# the headline's limit on timed solves not at tolerance (rejected included)
+NOT_AT_TOLERANCE = 0.10
 GATE = 99          # noise stream of the quality gate (the reference's key 99)
 CONVERGED_FIXTURE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -148,14 +153,6 @@ class Timed(NamedTuple):
     @property
     def unsolved(self) -> int:
         return sum(int(c.unsolved) for c in self.chunks)
-
-    @property
-    def state(self) -> lmpc_mod.LMPCState:
-        return self.chunks[-1].state
-
-    @property
-    def plant(self) -> PlantState:
-        return self.chunks[-1].plant
 
 
 def time_chunks(mp: main_path.MainPath, state, plant, *, steps: int,
@@ -407,6 +404,10 @@ def main(batch: int = 256, steps: int = 50, reps: int = 3,
         "admm_iters_p50": int(np.percentile(it, 50)),
         "admm_iters_p99": int(np.percentile(it, 99)),
         "batch": batch,
+        "solves_timed": int(it.size),
+        "solves_rejected": head.rejected,
+        "solves_not_at_tolerance": head.unsolved,
+        "not_at_tolerance_ok": head.unsolved <= NOT_AT_TOLERANCE * it.size,
     })
     try:
         sec = secondary(batch, steps, pid, device=device,

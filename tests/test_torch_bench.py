@@ -4,19 +4,18 @@ root ``bench.py`` on the CPU.
 - The gate's arithmetic equals the reference's ``quality_gate`` (its lap
   runner stubbed) on every case: each criterion just inside and just
   outside its bound, the missing-fixture branch, and random lap lists.
-- ``gate_laps`` equals the reference's ``_run_gate_laps``: 2 laps, batch
-  2, chunk 30, noise off, seeded from the committed converged laps. The
-  reference fixes float32 there, and in float32 the two controllers part
-  from the first solves (from the same float32 state they take different
-  ADMM iteration counts; the KKT matrix's condition number is ~1e6),
-  which the closed loop amplifies into other lap steps
-  (``tests/torch_f32_iterations.py state`` and ``gate``). So both run in
-  float64 here, the reference's float32 switched to float64 for the
-  call.
-- ``main`` on the CPU prints one JSON line with the reference's keys and
-  ``device``; the launch check raises when a kernel did not launch once a
-  step or a scenario streamed; the entry point exits non-zero without a
-  card unless ``--device cpu``.
+- ``gate_laps`` equals the reference's ``_run_gate_laps`` in float64: 2
+  laps, batch 2, chunk 30, noise off, seeded from the committed converged
+  laps. The reference's lap runner takes the dtype of its controller, its
+  state and its plant; they are made float64 through the reference's own
+  ``dtype`` arguments and its x0 cast where the plant is built. In float32
+  (the path the card runs) the two controllers part from the first solves,
+  so ``tests/test_torch_bench_f32.py`` holds that path to the reference
+  within stated bounds instead.
+- ``main`` on the CPU prints one JSON line with the reference's keys,
+  ``device`` and the timed solves' quality figure; the launch check raises
+  when a kernel did not launch once a step or a scenario streamed; the
+  entry point exits non-zero without a card unless ``--device cpu``.
 """
 import dataclasses
 import functools
@@ -37,6 +36,7 @@ from hypothesis import strategies as st
 
 import bench as jbench
 from racinglmpc_tpu.controllers import lmpc as jlmpc
+from racinglmpc_tpu.models import dynamics as jdyn
 from racinglmpc_tpu.models import track as jtrack
 from racinglmpc_tpu.runtime import experiment as jexp
 from racinglmpc_tpu.utils import config as jc
@@ -168,12 +168,19 @@ def test_gate_laps_equal_reference_float64():
     seeds = [[fx[f"{k}{i}"] for k in ("x", "u", "xg", "steps")]
              for i in range(int(fx["n_laps"]))]
     kw = dict(laps=2, batch=2, chunk=30, max_steps=120)
+    plant = jdyn.PlantState
+
+    def plant64(x, x_glob):
+        return plant(x=jnp.asarray(x, jnp.float64),
+                     x_glob=jnp.asarray(x_glob, jnp.float64))
+
     with pytest.MonkeyPatch.context() as mp:
-        # the reference's gate fixes float32 (its x0 and state dtypes)
-        mp.setattr(jnp, "float32", jnp.float64)
+        # the reference's gate leaves its controller and state at their
+        # float32 defaults and builds x0 in float32
         for name in ("init_lmpc_state", "make_lmpc"):
             mp.setattr(jlmpc, name, functools.partial(getattr(jlmpc, name),
                                                       dtype=jnp.float64))
+        mp.setattr(jdyn, "PlantState", plant64)
         ref = jbench._run_gate_laps(
             jcfg, jtrack.make_track(dtype=jnp.float64), jc.VehicleParams(),
             [tuple(jnp.asarray(a) for a in s) for s in seeds],
@@ -203,7 +210,13 @@ def test_main_on_cpu_prints_the_reference_fields(monkeypatch, capsys):
     assert set(res) == {"metric", "value", "unit", "vs_baseline",
                         "admm_iters_mean", "admm_iters_p50",
                         "admm_iters_p99", "batch", "max_preset_solves_per_s",
-                        "quality", "device"}
+                        "quality", "device", "solves_timed",
+                        "solves_rejected", "solves_not_at_tolerance",
+                        "not_at_tolerance_ok"}
+    assert res["solves_timed"] == 4
+    assert 0 <= res["solves_rejected"] <= res["solves_not_at_tolerance"] <= 4
+    assert res["not_at_tolerance_ok"] is (
+        res["solves_not_at_tolerance"] <= 0.1 * 4)
     assert res["metric"] == tbench.CPU_METRIC and res["device"] == "cpu"
     assert res["value"] > 0 and res["batch"] == 2
     assert len(res["quality"]["laps_mean_steps"]) == 1
