@@ -549,7 +549,7 @@ def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
                  rescue_trigger: float = 7.5e-3, rescue_exit: float = 1e-3,
                  ns_tol: float = 1e-3, ns_max_iters: int = 40,
                  iter_precision: str = "highest",
-                 layout=None) -> Tuple[torch.Tensor, ...]:
+                 layout=None, workspace=None) -> Tuple[torch.Tensor, ...]:
     """ADMM loop for a batch of scaled QPs: P, Kinv (B, n, n), A (B, m, n),
     q, D, x0 (B, n), l, u, rho, E, z0, y0 (B, m), c (B,).
 
@@ -557,7 +557,9 @@ def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
     plain version; CUDA float32 contiguous tensors launch the kernel, in
     the plan's layout (``layout=None``) or the one forced (``"resident"``,
     ``"stream"``: for checks only), its main loop instantiated at
-    ``iter_precision``."""
+    ``iter_precision``. ``workspace``: the rescue's (B, 4, n, n) float32
+    scratch, made per call when None; after the call the first n x n
+    block of a rescued lane holds the rescue's inverse (for checks)."""
     if layout not in (None,) + LAYOUTS:
         raise ValueError(f"layout must be None, 'resident' or 'stream', got "
                          f"{layout!r}")
@@ -588,8 +590,11 @@ def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
     y = torch.empty_like(y0)
     stats = torch.empty((Bsz, 2), dtype=torch.float32, device=P.device)
     flags = torch.empty((Bsz, 4), dtype=torch.int32, device=P.device)
-    ws = torch.empty((Bsz if rescue_max_iter > 0 else 0, 4, n, n),
-                     dtype=torch.float32, device=P.device)
+    if workspace is not None:
+        cuda_build.expect(workspace, "workspace", (Bsz, 4, n, n))
+    ws = workspace if workspace is not None else torch.empty(
+        (Bsz if rescue_max_iter > 0 else 0, 4, n, n), dtype=torch.float32,
+        device=P.device)
     Pt = cuda_build.ptr
     err = _launchers(cuda_build.library())["main"](
         p, Pt(P), Pt(Kinv), Pt(A), Pt(nvecs), Pt(vecs), Pt(c_inv), Pt(x0),

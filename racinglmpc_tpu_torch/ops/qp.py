@@ -18,10 +18,11 @@ Stages (reference ``qp.py`` line ranges in brackets):
 - K = P + sigma I + A' rho A and its Newton-Schulz inverse with the
   12-step power-iteration warm gate and the unconditional final squaring
   [185-300]; these are plain float32 GEMMs (``torch.matmul``, TF32 off),
-  as the reference leaves them to XLA. With an FTOCP ``structure`` and
-  ``kkt_structured`` the inverse starts from the exact block-tridiagonal
-  build (``ops/kkt_band.structured_kinv``), squared once, and the
-  Newton-Schulz guard verifies it [544-567];
+  as the reference leaves them to XLA, but for the final squaring's two
+  products, which run in float64 (see ``_ns_inverse``). With an FTOCP
+  ``structure`` and ``kkt_structured`` the inverse starts from the exact
+  block-tridiagonal build (``ops/kkt_band.structured_kinv``), squared
+  once, and the Newton-Schulz guard verifies it [544-567];
 - the ADMM loop: on CUDA float32 tensors with fixed rho and
   ``use_pallas`` it is the hand-written kernel ``ops/cuda_qp.py`` (B1);
   with ``pallas_fused_ns`` too (and no structured build, which takes
@@ -171,7 +172,7 @@ def _ns_inverse(K, X0, warm_ok, tol: float, max_iters: int,
     iteration from the all-ones vector puts the spectral radius of
     I - K X0 below 0.9, else the norm-scaled Jacobi init; a restart pass
     from Jacobi when the first pass failed; an unconditional final
-    squaring. Returns (X, resid)."""
+    squaring, its products in float64 for float32 K. Returns (X, resid)."""
     Bsz, n, _ = K.shape
     dt, dev = K.dtype, K.device
     I = torch.eye(n, dtype=dt, device=dev)
@@ -226,10 +227,19 @@ def _ns_inverse(K, X0, warm_ok, tol: float, max_iters: int,
     X, resid = run(X_init, r_init)
     bad = ~torch.isfinite(resid) | (resid > 50 * tol)
     X2, resid2 = run(_w(bad, Xj, X), torch.where(bad, big, resid))
-    R2 = I - K @ X2
-    r2_m = R2.abs().amax((1, 2))
+    # The final unconditional squaring. On float32 K its two products run
+    # in float64 and X3 is rounded back once (a mixed-precision refinement
+    # step): a float32 R2 = I - K X2 carries the rounding of its n-term
+    # sums, which holds the inverse at max|I - K X3| ~5e-4 on the main
+    # path's FTOCPs, where B1's iteration tail grows with that residual;
+    # in float64 it lands at ~1e-4, the float32 inverse's own rounding.
+    # Float64 K takes its own dtype, unchanged.
+    wide = torch.float64 if dt == torch.float32 else dt
+    K2, X2w = K.to(wide), X2.to(wide)
+    R2 = torch.eye(n, dtype=wide, device=dev) - K2 @ X2w
+    r2_m = R2.abs().amax((1, 2)).to(dt)
     ok2 = torch.isfinite(r2_m) & (r2_m < 1.0)
-    X3 = _w(ok2, X2 + X2 @ R2, X2)
+    X3 = _w(ok2, (X2w + X2w @ R2).to(dt), X2)
     return X3, torch.where(ok2, torch.minimum(resid2, r2_m), resid2)
 
 

@@ -119,7 +119,7 @@ def test_kernel_path_float32_misses_in_both_packages():
     xp = _port(z, torch.float32, kernel_path=True)
     xj = _reference(z, jnp.float32, kernel_path=True)
     assert np.isfinite(xp).all() and np.isfinite(xj).all()
-    # both stall short of s = 14 (card 9.88, reference 9.92, port 9.34)
+    # both stall short of s = 14 (card 9.88, reference 9.92, port 11.30)
     assert not _meets_criteria(xp), xp[-1, 4]
     assert not _meets_criteria(xj), xj[-1, 4]
     assert xp[-1, 4] < 12.0 and xj[-1, 4] < 12.0
