@@ -57,8 +57,11 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    then B1 at the lowered iteration precisions ("bf16x3", "default"; the
    reference's ``pallas_iter_precision``) in both layouts against the
    plain version: after one fixed iteration on 64 random QPs (n = 30)
-   within fixed limits (``SHARP``), every other precision's kernel
-   ("highest" included) beyond them; on the main path's FTOCPs bf16x3
+   within fixed limits (``SHARP``; at default a lane beyond the max limit
+   only within the mean limit of the plain version with one near-tie bf16
+   rounding taken the other way, ``FLIP_MARGIN``), every other
+   precision's kernel ("highest" included) beyond them; on the main
+   path's FTOCPs bf16x3
    after 16 fixed iterations within twice the control (the plain version
    with float64 accumulation against itself: bf16x3 rounds each operand
    to ~16 bits, so another summation order moves a product by ~2^-17 and
@@ -536,6 +539,102 @@ SHARP_SOLVER = dict(max_iter=1, check_every=1, eps_abs=0.0, eps_rel=0.0,
                     rescue_max_iter=0, polish=False, adaptive_rho=False,
                     use_pallas=True)
 
+# At "default" each vector operand of an iteration product is rounded to
+# bf16 once. Where a float32 sum lands near a bf16 rounding boundary,
+# another summation order can round it the other way, and that one rounding
+# moves the lane by one bf16 step pushed through the rest of the iteration
+# (up to ~5e-2 on the random QPs, above the max limit). So at "default" a
+# lane beyond the max limit from the plain version's x passes only if it
+# lies within the mean limit of the plain version's x with one such
+# rounding taken the other way: an operand whose float32 value lies within
+# FLIP_MARGIN of a bf16 step from the boundary (60 other orders on the CPU
+# moved no operand that moved x by more than 1e-3 across a boundary farther
+# than 0.086 of a step from it). A lane moved by 1.5e-2 to 5e-2 in one
+# coordinate, or in all, matches no such variant. The mean limit, and the
+# other precisions' distance, stay against the plain x.
+FLIP_MARGIN = 0.125
+
+
+def bf16_other(t, h):
+    """The bfloat16 neighbour of float32 ``t`` on the other side of ``t``
+    from its rounding ``h`` (both float32; ``t != h``, same sign)."""
+    import torch
+
+    up = (t.abs() > h.abs()).to(torch.int32)
+    return (h.view(torch.int32) + (2 * up - 1) * (1 << 16)).view(
+        torch.float32)
+
+
+class bf16_flips:
+    """Inside the block ``cuda_qp.bf16`` records each (lanes, k) vector it
+    rounds, in call order (``self.calls``), and rounds the elements of
+    ``flips`` {call index: (lane indices, column indices)} to the other
+    bf16 neighbour (:func:`bf16_other`). Matrices (the operands made once
+    per call) are rounded as they are."""
+
+    def __init__(self, cuda_qp, flips=None):
+        self.mod, self.flips, self.calls = cuda_qp, flips or {}, []
+
+    def __enter__(self):
+        rnd = self.saved = self.mod.bf16
+
+        def bf16(t):
+            h = rnd(t)
+            if t.dim() != 2:
+                return h
+            c = len(self.calls)
+            self.calls.append(t.detach().clone())
+            if c in self.flips:
+                lanes, cols = self.flips[c]
+                h = h.clone()
+                h[lanes, cols] = bf16_other(t[lanes, cols], h[lanes, cols])
+            return h
+
+        self.mod.bf16 = bf16
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.bf16 = self.saved
+
+
+def flip_candidates(t, h):
+    """Mask of the elements of ``t`` (rounded to ``h``) within
+    :data:`FLIP_MARGIN` of a bf16 step from their rounding boundary."""
+    import torch
+
+    ok = torch.isfinite(t) & (t != h) & (h != 0)
+    o = torch.where(ok, bf16_other(t, h), h + 1.0)
+    dist = (t - 0.5 * (h + o)).abs() / (o - h).abs()
+    return ok & (dist <= FLIP_MARGIN)
+
+
+def sharp_plain(cuda_qp, run_p, prec):
+    """(px, flipped): the plain version's x at ``prec`` (``run_p`` from
+    :func:`sharp_runs`) and, at "default", its x with one rounding taken
+    the other way, one tensor per round (each round flips the r-th
+    candidate of every lane that has one; :func:`flip_candidates`)."""
+    if prec != "default":
+        return run_p(prec), []
+    with bf16_flips(cuda_qp) as rec:
+        px = run_p(prec)
+    cands = [[] for _ in range(px.shape[0])]
+    for c, t in enumerate(rec.calls):
+        mask = flip_candidates(t, cuda_qp.bf16(t))
+        for lane, j in mask.nonzero().tolist():
+            cands[lane].append((c, j))
+    flipped = []
+    for r in range(max(map(len, cands), default=0)):
+        flips = {}
+        for lane, cs in enumerate(cands):
+            if r < len(cs):
+                c, j = cs[r]
+                flips.setdefault(c, ([], []))
+                flips[c][0].append(lane)
+                flips[c][1].append(j)
+        with bf16_flips(cuda_qp, flips):
+            flipped.append(run_p(prec))
+    return px, flipped
+
 
 def lane_dist(a, b):
     """(mean over lanes, max) of each lane's max |a - b|."""
@@ -543,15 +642,28 @@ def lane_dist(a, b):
     return float(d.mean()), float(d.max())
 
 
-def sharp_agrees(prec, xs, px):
+def sharp_agrees(prec, xs, px, flipped=()):
     """(ok, detail, max |dx|): ``xs`` {precision: kernel x}, ``px`` the
-    plain version's x at ``prec``, after one iteration (:data:`SHARP`)."""
+    plain version's x at ``prec``, after one iteration (:data:`SHARP`);
+    ``flipped``: px with one bf16 rounding taken the other way
+    (:func:`sharp_plain`); a lane beyond the max limit passes if it lies
+    within the mean limit of one of them."""
     mean_l, max_l = SHARP[prec]
-    mean_e, max_e = lane_dist(xs[prec], px)
+    kx = xs[prec]
+    mean_e, max_e = lane_dist(kx, px)
+    d = (kx - px).abs().amax(-1)
+    far = (d >= max_l).nonzero()[:, 0].tolist()
+    flip_d = [min((float((kx[i] - fx[i]).abs().max()) for fx in flipped),
+                  default=float("inf")) for i in far]
     others = {o: lane_dist(x, px)[0] for o, x in xs.items() if o != prec}
-    ok = mean_e < mean_l and max_e < max_l and min(others.values()) > mean_l
+    ok = (mean_e < mean_l and all(f < mean_l for f in flip_d)
+          and min(others.values()) > mean_l)
     return ok, (f"(lane mean {mean_e:.2e} < {mean_l:.0e}, max {max_e:.2e} "
-                f"< {max_l:.0e}; other precisions' kernels at lane mean "
+                f"against {max_l:.0e}, lanes at or beyond it within "
+                f"{mean_l:.0e} of one of {len(flipped)} one-flip variants: "
+                + (", ".join(f"lane {i} {f:.2e}" for i, f in zip(far, flip_d))
+                   or "none")
+                + "; other precisions' kernels at lane mean "
                 + ", ".join(f"{o} {d:.2e}" for o, d in others.items())
                 + f" > {mean_l:.0e})"), max_e
 
@@ -596,7 +708,8 @@ def sharp_check(qp_mod, cuda_qp, cuda_qp_fused, kernel, layout=None):
     xs = {prec: run_k(prec) for prec in cuda_qp.ITER_PRECISIONS}
     errs = {}
     for prec in VARIANTS:
-        ok, detail, errs[prec] = sharp_agrees(prec, xs, run_p(prec))
+        ok, detail, errs[prec] = sharp_agrees(
+            prec, xs, *sharp_plain(cuda_qp, run_p, prec))
         tag = kernel + (f"_{layout}" if layout else "")
         check(f"{tag}_{prec}_one_iteration_random_qps", ok, detail)
     return errs

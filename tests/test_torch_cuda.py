@@ -301,7 +301,8 @@ def test_iteration_precision_one_iteration_random_qps(kernel, layout):
                                          kernel, layout)
     xs = {prec: run_k(prec) for prec in cuda_qp.ITER_PRECISIONS}
     for prec in chip_smoke.VARIANTS:
-        ok, detail, _ = chip_smoke.sharp_agrees(prec, xs, run_p(prec))
+        ok, detail, _ = chip_smoke.sharp_agrees(
+            prec, xs, *chip_smoke.sharp_plain(cuda_qp, run_p, prec))
         assert ok, (prec, detail)
 
 

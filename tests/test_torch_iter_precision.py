@@ -343,14 +343,54 @@ def test_sharp_check_limits_lie_between_order_and_precision(kernel):
     and for B4's ADMM phase."""
     run_k, run_p = chip_smoke.sharp_runs(tqp, cuda_qp, cuda_qp_fused, kernel,
                                          device="cpu")
-    plain = {prec: run_p(prec) for prec in chip_smoke.VARIANTS}
+    plain = {prec: chip_smoke.sharp_plain(cuda_qp, run_p, prec)
+             for prec in chip_smoke.VARIANTS}
     for seed in range(3):
         with _permuted_products(seed):
             xs = {prec: run_k(prec) for prec in cuda_qp.ITER_PRECISIONS}
         for prec in chip_smoke.VARIANTS:
-            assert not torch.equal(xs[prec], plain[prec])
-            ok, detail, _ = chip_smoke.sharp_agrees(prec, xs, plain[prec])
+            assert not torch.equal(xs[prec], plain[prec][0])
+            ok, detail, _ = chip_smoke.sharp_agrees(prec, xs, *plain[prec])
             assert ok, (seed, prec, detail)
+
+
+def test_bf16_other_is_the_neighbour_across_the_value():
+    """``chip_smoke.bf16_other``: a bfloat16 value, one bf16 step from the
+    rounding, with the float32 value between the two."""
+    rng = np.random.default_rng(3)
+    t = torch.tensor(rng.normal(size=20000) * 2.0 ** rng.integers(
+        -20, 20, size=20000), dtype=torch.float32)
+    h = cuda_qp.bf16(t)
+    keep = (t != h) & (h != 0)
+    t, h = t[keep], h[keep]
+    o = chip_smoke.bf16_other(t, h)
+    assert torch.equal(cuda_qp.bf16(o), o)
+    assert bool(((t - h) * (o - t) > 0).all())
+    assert bool(((o - h).abs() <= h.abs() * 2.0 ** -7).all())
+
+
+@pytest.mark.parametrize("kernel", ["admm", "fused_admm"])
+@pytest.mark.parametrize("whole_lane", [False, True])
+def test_sharp_check_refuses_a_lane_no_flip_explains(kernel, whole_lane):
+    """At "default" a lane of the kernel's x moved from the plain version's
+    by 1.5e-2 (beyond the max limit) in one coordinate, or in every one, is
+    refused although one-flip variants are offered: none lies within the
+    mean limit of it."""
+    run_k, run_p = chip_smoke.sharp_runs(tqp, cuda_qp, cuda_qp_fused, kernel,
+                                         device="cpu")
+    px, flipped = chip_smoke.sharp_plain(cuda_qp, run_p, "default")
+    assert flipped
+    xs = {prec: run_k(prec) for prec in ("highest", "bf16x3")}
+    assert chip_smoke.sharp_agrees("default", dict(xs, default=px), px,
+                                   flipped)[0]
+    B, n = px.shape
+    for lane in range(B):
+        for j in ([slice(None)] if whole_lane else range(n)):
+            kx = px.clone()
+            kx[lane, j] += 1.5e-2
+            ok, detail, _ = chip_smoke.sharp_agrees(
+                "default", dict(xs, default=kx), px, flipped)
+            assert not ok, (lane, j, detail)
 
 
 def test_sharp_check_refuses_a_dropped_cross_term(monkeypatch):
