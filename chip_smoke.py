@@ -22,9 +22,10 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    launches > 0 and no scenario streamed; at most 10% of the solves of
    the first two timed chunks (steps 51-150) not at tolerance, the share
    of all three (the bench's window, steps 51-200, which reaches the
-   finish line's regime: ROADMAP C6) printed beside it; after each timed
-   chunk, the float64 true residual max|I - K Kinv| of the inverse
-   handed to B1 on 8 lanes, below the reference's float32 floor (3e-4);
+   finish line: ROADMAP C6) and where the last chunk's solves at
+   max_iter sit printed beside it; after each timed chunk, the float64
+   true residual max|I - K Kinv| of the inverse handed to B1 on 8 lanes,
+   below the reference's float32 floor (3e-4);
    the final Newton-Schulz squaring timed in float64 and in float32;
 3. holds B1-B3 against their plain PyTorch versions on the card at the
    main path's shapes (the FTOCPs, lap store and plant states of the batch
@@ -42,12 +43,14 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    a forced rho-escalation
    rescue with the same rescued flags and iteration counts as the plain
    version on every lane; bit-identical results from two resident calls
-   and from the two layouts; at tolerance on the FTOCPs after the second
-   timed chunk (step 150) solves and mean iterations within 2% of the
-   plain version's (``tolerance_b1``); on those after the last one (step
-   200) the fixed iterations, the bits, and under the forced rescue the
-   plain version's count on every lane but those whose count it does not
-   reproduce itself in another summation order (the lane alone on the
+   and from the two layouts; the same on the FTOCPs after the last timed
+   chunk (step 200), but at tolerance, where most solves sit at float32's
+   floor of the dual residual (ROADMAP C6), solves and mean iterations
+   within 2% of the interval between the plain version with float32
+   products and with each product rounded once from float64, and every
+   lane called solved at tolerance in float64; under the forced rescue
+   the plain version's count on every lane but those whose count it does
+   not reproduce itself in another summation order (the lane alone on the
    CPU, one thread), at most 2% of the batch (``last_chunk_b1``, ROADMAP
    C7); the float64 true residuals of B1's in-kernel rescue inverse and
    of B4's prologue inverse on 8 lanes (``inverse_floors``);
@@ -1318,39 +1321,83 @@ def inverse_floors(torch, qp_mod, cuda_qp, cuda_qp_fused, qp, warm, fac,
     return out
 
 
-def tolerance_b1(torch, cuda_qp, rescue_replay, ctrl, chunk, solver, tag):
-    """Phase 3, B1 at the main path's tolerance on the FTOCPs after
-    ``chunk`` in both layouts, as the plain version's
-    (:func:`tolerance_agrees`)."""
-    st = chunk.state
-    qp = ctrl.build_qp(st, chunk.plant.x)[0]
-    t_args, t_kw = rescue_replay.admm_args(qp, solver, (st.warm_x, st.warm_y),
-                                           st.fac)
-    pt = cuda_qp.admm_iterate_plain(*t_args, **t_kw)
-    for name in cuda_qp.LAYOUTS:
-        kt = cuda_qp.admm_iterate(*t_args, **t_kw, layout=name)
-        ok, detail = tolerance_agrees(kt[5], kt[4], pt[5], pt[4])
-        check(f"admm_{name}_tolerance_as_plain_{tag}", ok, detail)
+# the float32 check's own rounding against its float64 recompute: <= 7.6e-6
+# of the dual residual on the main path's FTOCPs (the plain version, CPU)
+SOUND_MARGIN = 1e-3
+
+
+def unsound_lanes(torch, args, kw, out):
+    """Lanes that ``out`` (an ``admm_iterate`` result on ``args``) reports
+    solved whose returned (x, y) do not meet the solver's tolerance under
+    the plain version's residuals recomputed in float64 (within
+    :data:`SOUND_MARGIN` of the limit); a rescued lane may meet the
+    rescue's primal-only exit instead."""
+    P, _, A, q, l, u, rho, D, E, c = (a.double() for a in args[:10])
+    x, y = out[0].double(), out[1].double()
+    Ax = (A @ x[..., None])[..., 0]
+    zc = torch.maximum(torch.minimum(Ax, u), l)
+    Px = (P @ x[..., None])[..., 0]
+    Aty = (y[:, None] @ A)[:, 0]
+    ci = 1.0 / c.reshape(-1)
+    pri = ((Ax - zc) / E).abs().amax(-1)
+    dua = ((Px + q + Aty) * D).abs().amax(-1) * ci
+    pri_sc = torch.maximum((Ax / E).abs().amax(-1), (zc / E).abs().amax(-1))
+    dua_sc = torch.maximum(torch.maximum((Px * D).abs().amax(-1),
+                                         (Aty * D).abs().amax(-1)),
+                           (q * D).abs().amax(-1)) * ci
+    m = 1.0 + SOUND_MARGIN
+    ok = ((pri < m * (kw["eps_abs"] + kw["eps_rel"] * pri_sc))
+          & (dua < m * (kw["eps_abs"] + kw["eps_rel"] * dua_sc)))
+    ok = ok | (out[6] & (pri < m * kw["rescue_exit"]))
+    return (out[5] & ~ok).nonzero()[:, 0].tolist()
+
+
+def floor_tolerance_agrees(torch, args, kw, kt, pt, pc):
+    """(ok, detail): B1 at tolerance on FTOCPs where most solves sit at
+    float32's floor of the dual residual (after step 200, ~1 m before the
+    finish line: ROADMAP C6). There which lanes reach the tolerance is
+    decided by how the products round: the plain version with float32
+    products (``pt``) and with each product rounded once from float64
+    (``pc``, :class:`float64_products`) solved 6 and 94 of 256 on an
+    H100 after step 200, and the kernel, the plain version and the plain
+    version of a lane alone on the CPU, three float32 summation orders,
+    agreed on no common set of lanes. So the kernel's solved count and mean iterations
+    must lie within :data:`TOLERANCE_SHARE` (solves also
+    :data:`TOLERANCE_SOLVES`) of the interval the two plain versions span,
+    and every lane it calls solved must meet the tolerance
+    (:func:`unsound_lanes`)."""
+    B = kt[5].numel()
+    ks = int(kt[5].sum())
+    km = float(kt[4].float().mean())
+    pts = [int(r[5].sum()) for r in (pt, pc)]
+    pms = [float(r[4].float().mean()) for r in (pt, pc)]
+    slack = max(TOLERANCE_SHARE * B, TOLERANCE_SOLVES)
+    bad = unsound_lanes(torch, args, kw, kt)
+    ok = (min(pts) - slack <= ks <= max(pts) + slack
+          and (1 - TOLERANCE_SHARE) * min(pms) <= km
+          <= (1 + TOLERANCE_SHARE) * max(pms) and not bad)
+    return ok, (f"(solved kernel {ks}, plain {pts[0]}, plain with products "
+                f"rounded once {pts[1]} of {B}; iters mean kernel {km:.2f}, "
+                f"plain {pms[0]:.2f} and {pms[1]:.2f}; within "
+                f"{TOLERANCE_SHARE:.0%} of that interval, solves also within "
+                f"{TOLERANCE_SOLVES}; solved lanes off tolerance in float64: "
+                f"{bad})")
 
 
 def last_chunk_b1(torch, cuda_qp, rescue_replay, ctrl, chunk, solver, tag):
     """Phase 3, B1 on the FTOCPs after the last timed chunk ``chunk`` (a
     :class:`main_path.Chunk`), whose solves reach max_iter most often: 16
-    fixed iterations against the plain version in both layouts, two calls
-    and the two layouts bit-identical, and the forced rescue: every lane
-    rescued, the plain version's flags, and its iteration count on every
+    fixed iterations against the plain version in both layouts, at
+    tolerance as its plain versions (:func:`floor_tolerance_agrees`), two
+    calls and the two layouts bit-identical, and the forced rescue: every
+    lane rescued, the plain version's flags, and its iteration count on every
     lane where that count does not hang on the summation order. A lane
     whose exit margin comes within the order's noise of the threshold
     leaves where the order lets it (ROADMAP C7), so on a lane whose count
     differs the plain version runs again, the lane alone on the CPU with
     one thread: if it gives the card's count, the kernel must too; if not,
     the lane's count is the order's, and such lanes may be at most
-    ``TOLERANCE_SHARE`` of the batch (or ``TOLERANCE_SOLVES``). At
-    tolerance the two are printed, not held: by step 200 most cars are
-    within 1.5 m of the finish line, where every solver (the reference's
-    too) runs most main loops to max_iter and which lanes still converge
-    depends on the summation order (ROADMAP C6); :func:`tolerance_b1` holds
-    B1 at tolerance on the FTOCPs after the chunk before."""
+    ``TOLERANCE_SHARE`` of the batch (or ``TOLERANCE_SOLVES``)."""
     st = chunk.state
     qp = ctrl.build_qp(st, chunk.plant.x)[0]
     warm = (st.warm_x, st.warm_y)
@@ -1363,6 +1410,8 @@ def last_chunk_b1(torch, cuda_qp, rescue_replay, ctrl, chunk, solver, tag):
         qp, rescue_replay.forced_rescue(solver), warm, None)
     pf = cuda_qp.admm_iterate_plain(*f_args, **f_kw)
     pt = cuda_qp.admm_iterate_plain(*t_args, **t_kw)
+    with float64_products(cuda_qp):
+        pc = cuda_qp.admm_iterate_plain(*t_args, **t_kw)
     pr = cuda_qp.admm_iterate_plain(*r_args, **r_kw)
     B = pr[4].numel()
     alone, outs = {}, {}
@@ -1372,8 +1421,8 @@ def last_chunk_b1(torch, cuda_qp, rescue_replay, ctrl, chunk, solver, tag):
         check(f"admm_{name}_fixed16_vs_plain_{tag}", err < 3e-2,
               f"(max |dx| {err:.2e})")
         kt = cuda_qp.admm_iterate(*t_args, **t_kw, layout=name)
-        print(f"[chip_smoke] admm_{name} at tolerance {tag} (not held): "
-              f"{tolerance_agrees(kt[5], kt[4], pt[5], pt[4])[1]}")
+        ok, detail = floor_tolerance_agrees(torch, t_args, t_kw, kt, pt, pc)
+        check(f"admm_{name}_tolerance_as_plain_{tag}", ok, detail)
         kr = cuda_qp.admm_iterate(*r_args, **r_kw, layout=name)
         diff = (kr[4] != pr[4]).nonzero()[:, 0].tolist()
         for i in diff:
@@ -1507,12 +1556,13 @@ def main() -> int:
               f"{int(ch.rejected)}, not solved to tolerance "
               f"{int(ch.unsolved)} of {ci.numel()}")
     # the solved-share check holds the timed chunks before the finish
-    # line's regime (steps 51-150): from ~1.5 m before the line (steps
-    # ~175-200 here) every solver, the reference's too, runs most main
-    # loops to max_iter (ROADMAP C6), so the window's share (steps 51-200)
-    # is printed beside it; phase 3's kernel checks hold the FTOCPs after
-    # the first timed chunk (steps 51-100, where earlier slices timed one
-    # chunk) and B1 after the later ones too
+    # line (steps 51-150); from ~1.5 m before it (steps ~175-200 here)
+    # float32's dual residual cannot certify the tolerance and most solves
+    # run the main loop to max_iter, the reference's own too, though their
+    # inputs lie within 1e-2 of the exact ones (ROADMAP C6), so the
+    # window's share (steps 51-200) is printed beside it; phase 3's kernel
+    # checks hold the FTOCPs after the first timed chunk (steps 51-100,
+    # where earlier slices timed one chunk) and B1 after the last one too
     first = head.chunks[0]
     state, plant = first.state, first.plant
     held = head.chunks[:-1]
@@ -1524,6 +1574,15 @@ def main() -> int:
           f"of {solves} in the first {len(held)}; solves at max_iter "
           f"{int((it == cfg.solver.max_iter).sum())}, past it (rescued) "
           f"{int((it > cfg.solver.max_iter).sum())}")
+    last = head.chunks[-1]
+    t1 = STEPS * len(head.chunks) + 1
+    s_end = last.plant.x[:, 4].cpu()
+    print(f"[chip_smoke] solves at max_iter per step of the last timed chunk "
+          f"(steps {t1}-{t1 + STEPS - 1}): "
+          f"{(last.iters >= cfg.solver.max_iter).sum(-1).tolist()}; arc "
+          f"length after it min {float(s_end.min()):.2f} mean "
+          f"{float(s_end.mean()):.2f} max {float(s_end.max()):.2f} of a "
+          f"{float(trk.total_len):.2f} m lap")
     for name, n in launches.items():
         if name != "fused_admm":      # B4 is off on the main path
             check(f"main_path_launched_{name}", n > 0, f"({n})")
@@ -1729,8 +1788,6 @@ def main() -> int:
         bool(torch.equal(a, b)) for r, s in zip(outs["resident"],
                                                  outs["stream"])
         for a, b in zip(r, s)), "(at tolerance and under the forced rescue)")
-    tolerance_b1(torch, cuda_qp, rescue_replay, ctrl, head.chunks[-2],
-                 cfg.solver, f"step{STEPS * len(head.chunks)}")
     last_chunk_b1(torch, cuda_qp, rescue_replay, ctrl, head.chunks[-1],
                   cfg.solver, f"step{STEPS * (len(head.chunks) + 1)}")
     floors = inverse_floors(torch, qp_mod, cuda_qp, cuda_qp_fused, qp, warm,

@@ -42,7 +42,7 @@ def test_slice_modules_are_covered():
               "runtime.experiment", "parallel.mesh", "ops.qp_sharded",
               "controllers.giant_ftocp", "viz.plots",
               "runtime.dump_scenario", "runtime.bench", "runtime.native",
-              "runtime.rescue_replay", "runtime.finish_line"):
+              "runtime.rescue_replay"):
         assert f"racinglmpc_tpu_torch.{m}" in mods, m
     assert (PKG / "csrc" / "cuda_qp_fused.cu").exists()
     assert (PKG / "csrc" / "qp_common.cuh").exists()
