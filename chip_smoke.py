@@ -48,7 +48,11 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    floor of the dual residual (ROADMAP C6), solves and mean iterations
    within 2% of the interval between the plain version with float32
    products and with each product rounded once from float64, and every
-   lane called solved at tolerance in float64; under the forced rescue
+   lane called solved at tolerance in float64, and the lanes the plain
+   version brings to tolerance with one class of products at a time
+   rounded once from float64 printed (``product_classes``: the exit
+   test's, Kinv.rhs with its refinement, the iteration's A x and
+   A'(rho z - y)); under the forced rescue
    the plain version's count on every lane but those whose count it does
    not reproduce itself in another summation order (the lane alone on the
    CPU, one thread), at most 2% of the batch (``last_chunk_b1``, ROADMAP
@@ -148,8 +152,22 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    then the ``throughput_max()`` secondary (``bench.secondary``: its timed
    chunks on the kernels, no error); then the converged phase again at
    the round-3 preset (``rescue_max_iter=0``), which must fail one of the
-   gate's criteria (the gate can fail). Each phase's wall is printed;
-11. prints one JSON line of kernel summaries (B1 and B4 also at each
+   gate's criteria (the gate can fail); where the converged phase's
+   solves not at tolerance sit is printed, by metres to the finish line
+   and by ADMM iterations (ROADMAP C9);
+11. the 40-lap lap-time criterion (``runtime/solver_quality.py``, the
+   port's counterpart of ``examples/solver_quality.py``): one scenario of
+   ``throughput()`` in float32 on the card, ``LMPCConfig()`` with B2
+   engaged, driven through the float64 NumPy plant of
+   ``tests/oracles/ref_plant.py`` with the draws of
+   ``fixtures/solver_quality_40lap_v1.npz`` for 40 laps, counters reset
+   just before and read just after; every lap's steps printed beside the
+   float64 oracle's (the fixture) and the reference's float32 controller's
+   (``BENCH_solver_quality_40lap_tpu.json``); cumulative lap steps within
+   1% of the oracle's, every lap under 1000 steps, no NaN, rejected solves
+   at most 0.5%, B1 and B2 launched once a step and no scenario streamed.
+   Each phase's wall is printed;
+12. prints one JSON line of kernel summaries (B1 and B4 also at each
    lowered precision, their launches from phase 9; a variant's
    ``max_abs_err`` is that of the random-QP check, ``ftocp_max_abs_err``
    that of the FTOCP check; its bound prices the main loop's products at
@@ -158,6 +176,13 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
 
 It exits non-zero, printing no result, when no CUDA device is present or
 any phase fails. It imports nothing of JAX.
+
+    python3 chip_smoke.py --quality-triage
+
+runs phase 11's 40 laps alone, with B2 engaged and with the plain sys-ID,
+each also with a one-float32-ulp nudge of the controller's state at one
+step and with the ``throughput_max()`` and ``pallas_fused_ns`` solvers:
+how far float32's rounding moves the criterion (``quality_triage``).
 """
 from __future__ import annotations
 
@@ -485,20 +510,54 @@ FIXED_ITERS = {"bf16x3": 16, "default": 1}
 
 
 class float64_products:
-    """Inside the block the plain ADMM loop's products (``cuda_qp._vm``,
-    ``_mv``) accumulate in float64: the control of the variants' checks,
-    how far another summation order moves the plain version itself."""
+    """Inside the block the plain ADMM loop's products of each class in
+    ``classes`` (``cuda_qp.PRODUCTS``; all of them by default) accumulate
+    in float64 and round once: the control of the variants' checks, how
+    far another summation order moves the plain version itself, and which
+    products' rounding sets the finish line's floor (ROADMAP C6). With
+    ``rounded=False`` they stay float64, and so does the arithmetic that
+    reads them (for the exit test's class: its whole test)."""
 
-    def __init__(self, cuda_qp):
+    def __init__(self, cuda_qp, classes=None, rounded=True):
         self.mod = cuda_qp
+        self.classes = classes or cuda_qp.PRODUCT_CLASSES
+        self.out = (lambda t: t.float()) if rounded else (lambda t: t)
 
     def __enter__(self):
-        vm, mv = self.saved = (self.mod._vm, self.mod._mv)
-        self.mod._vm = lambda v, M: vm(v.double(), M.double()).float()
-        self.mod._mv = lambda M, v: mv(M.double(), v.double()).float()
+        self.saved = dict(self.mod.PRODUCTS)
+        out = self.out
+        for c in self.classes:
+            vm, mv = self.mod.products(c)
+            self.mod.PRODUCTS[c] = (
+                lambda v, M, vm=vm: out(vm(v.double(), M.double())),
+                lambda M, v, mv=mv: out(mv(M.double(), v.double())))
 
     def __exit__(self, *exc):
-        self.mod._vm, self.mod._mv = self.saved
+        self.mod.PRODUCTS.update(self.saved)
+
+
+def product_classes(cuda_qp, args, kw):
+    """B1's plain version at tolerance on one batch (``admm_iterate``'s
+    arguments) with float32 products, with one class of products at a time
+    rounded once from float64, with the exit test wholly in float64
+    ("check64"), and with every class rounded once ("all"): {name: its
+    output}. Which of them certifies the lanes that float32 leaves at the
+    floor names the products whose rounding sets it (ROADMAP C6)."""
+    out = {"float32": cuda_qp.admm_iterate_plain(*args, **kw)}
+    for name, classes, rounded in (
+            *((c, (c,), True) for c in cuda_qp.PRODUCT_CLASSES),
+            ("check64", ("check",), False), ("all", None, True)):
+        with float64_products(cuda_qp, classes, rounded):
+            out[name] = cuda_qp.admm_iterate_plain(*args, **kw)
+    return out
+
+
+def class_text(outs):
+    """Solved lanes and mean iterations of :func:`product_classes`."""
+    B = outs["float32"][5].numel()
+    return ", ".join(f"{k} {int(o[5].sum())}/{B} (iters mean "
+                     f"{float(o[4].float().mean()):.2f})"
+                     for k, o in outs.items())
 
 
 def variant_agrees(torch, prec, kx, px, cx):
@@ -1010,12 +1069,18 @@ def gate_phase(torch, bench, mp, pid, counters, layouts, B, steps):
     for c in counters + layouts:
         c.reset()
     t0 = time.time()
-    q = bench.quality_gate(mp.cfg, mp.trk, mp.vp, pid_lap, log=log)
+    trace = []
+    q = bench.quality_gate(mp.cfg, mp.trk, mp.vp, pid_lap, log=log,
+                           conv_trace=trace)
     lay = {c.name: count(c) for c in layouts}
     launches = {c.name: c.n for c in counters}
     print(f"[chip_smoke] quality gate ({time.time() - t0:.1f} s, batch "
           f"{q['batch']}): {json.dumps(q)}; launches {launches}, B1 layouts "
           f"and streamed scenarios {lay}")
+    where = unconverged_where(torch, trace, float(mp.trk.total_len),
+                              mp.cfg.solver.max_iter)
+    print(f"[chip_smoke] converged phase's solves not at tolerance (ROADMAP "
+          f"C9): {where}")
     check("quality_gate_pass", q["pass"],
           f"({[k for k, v in q.items() if v is False]} failed)")
     check("quality_gate_used_kernels",
@@ -1051,6 +1116,252 @@ def gate_phase(torch, bench, mp, pid, counters, layouts, B, steps):
           f"phase ({time.time() - t0:.1f} s): {json.dumps(crit)}")
     check("round3_preset_fails_the_gate", bool(failing),
           f"(failing: {failing})")
+
+
+# the record the reference's float32 controller set on the 40-lap
+# criterion (lap step counts of its TPU run; no time of it is used here)
+QUALITY_RECORD = "BENCH_solver_quality_40lap_tpu.json"
+QUALITY_LAPS = 40
+REJECTED_SHARE = 0.005      # the gate's own limit on rejected solves
+
+
+def quality_laps(torch, device, laps=QUALITY_LAPS, solver=None,
+                 dtype=None, lcfg=None, log=None, hook=None):
+    """The 40-lap criterion's run (phase 11; ``device="cpu"`` runs the
+    kernels' plain versions): the port's controller, by default the
+    ``throughput()`` solver in float32 with B2 engaged, through the float64
+    NumPy plant of ``tests/oracles/ref_plant.py`` with the committed draws
+    (``runtime/solver_quality``; ``hook`` as its ``run_laps``'). Returns
+    (laps, fixture, wall s)."""
+    from racinglmpc_tpu_torch.models.track import make_track
+    from racinglmpc_tpu_torch.runtime import solver_quality as sq
+    from racinglmpc_tpu_torch.utils.config import LMPCConfig, SolverConfig
+
+    dtype = dtype or torch.float32
+    cpu = torch.device(device).type == "cpu"
+    solver = solver or dataclasses.replace(SolverConfig.throughput(),
+                                           pallas_interpret=cpu)
+    lcfg = lcfg or LMPCConfig(use_pallas_sysid=True, sysid_interpret=cpu)
+    ref_plant = load_oracle("ref_plant")
+    fx = sq.load_fixture()
+    curv = ref_plant.np_curvature_fn(make_track(dtype=torch.float64,
+                                                device="cpu"))
+    t0 = time.time()
+    out = sq.run_laps(make_track(dtype=dtype, device=device),
+                      ref_plant.plant_step, curv, fx, laps, solver,
+                      dtype=dtype, lcfg=lcfg, device=device,
+                      log=log or (lambda _m: None), hook=hook)
+    return out, fx, time.time() - t0
+
+
+class SysidShadow:
+    """A :func:`quality_laps` hook: every ``every``-th step, B2 against its
+    plain version on that step's store and horizon (the sys-ID the step
+    is about to run). Keeps the largest |dA|, |dB|, |dC| (``max_abs``),
+    that relative to the plain version's largest entry and the step it
+    came at (``worst``), and per entry of A, B, C (summed over the
+    horizon) the signed differences, the plain version's magnitudes and
+    how often the kernel lies above: a kernel that rounds alike leaves no
+    entry with a steady sign (:meth:`bias`)."""
+
+    def __init__(self, cuda_sysid, every):
+        self.mod, self.every, self.t = cuda_sysid, every, 0
+        self.worst, self.calls, self.n = (0.0, None), 0, 1
+        self.max_abs = 0.0
+        self.diff = self.mag = self.above = None
+
+    def __call__(self, ctrl, state, x):
+        self.t += 1
+        if (self.t - 1) % self.every:
+            return
+        N = self.n = ctrl.cfg.N
+        args = (state.store, ctrl.trk, state.x_lin[:, :N].contiguous(),
+                state.u_lin.contiguous(), ctrl.cfg, ctrl.dt_ctrl)
+        k = self.mod.local_linearization_horizon(*args, table=ctrl.table)
+        p = self.mod.local_linearization_horizon_plain(*args)
+        rel = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                  for a, b in zip(k, p))
+        self.max_abs = max([self.max_abs] + [float((a - b).abs().max())
+                                             for a, b in zip(k, p)])
+        d = [(a - b).double().sum((0, 1)).flatten().cpu()
+             for a, b in zip(k, p)]
+        m = [b.double().abs().sum((0, 1)).flatten().cpu() for b in p]
+        up = [((a > b).double().sum((0, 1)) - (a < b).double().sum((0, 1)))
+              .flatten().cpu() for a, b in zip(k, p)]
+        if self.diff is None:
+            self.diff, self.mag, self.above = d, m, up
+        else:
+            for acc, new in ((self.diff, d), (self.mag, m), (self.above, up)):
+                for i, t in enumerate(new):
+                    acc[i] = acc[i] + t
+        self.calls += 1
+        if rel >= self.worst[0]:
+            self.worst = (rel, self.t - 1)
+
+    def bias(self, top=4):
+        """The ``top`` entries by |summed difference| over summed plain
+        magnitude: (output, entry, that ratio, (above - below) / samples),
+        the two ratios to 3 significant digits."""
+        rows = []
+        for name, d, m, up in zip("ABC", self.diff, self.mag, self.above):
+            for e in range(d.numel()):
+                if float(m[e]) > 0:
+                    ratio = float(d[e] / m[e])
+                    sign = float(up[e]) / (self.calls * self.n)
+                    rows.append((name, e, float(f"{ratio:.3g}"),
+                                 float(f"{sign:.3g}")))
+        return sorted(rows, key=lambda r: -abs(r[2]))[:top]
+
+
+class Nudge:
+    """A :func:`quality_laps` hook that moves the controller's view of the
+    state one float32 ulp up in component ``i`` at step ``t`` (the plant
+    keeps its float64 state): how far the 40-lap criterion moves under the
+    smallest change the controller can see."""
+
+    def __init__(self, torch, t, i):
+        self.torch, self.at, self.i, self.t = torch, t, i, 0
+
+    def __call__(self, ctrl, state, x):
+        if self.t == self.at:
+            v = x[0, self.i]
+            x[0, self.i] = self.torch.nextafter(v, v + 1)
+        self.t += 1
+
+
+# phase 11 holds B2 against its plain version on every SHADOW_EVERY-th step
+SHADOW_EVERY = 5
+# the one-ulp nudges of the triage (step, state component)
+NUDGES = ((0, 0), (1000, 4), (2000, 5), (500, 1), (1500, 2), (2500, 3))
+
+
+def quality_triage(torch):
+    """``python3 chip_smoke.py --quality-triage``: how far the 40-lap
+    criterion moves with float32's rounding on the card. For B2 engaged
+    (``use_pallas_sysid``) and not (the plain sys-ID): the run itself (B2
+    engaged, with :class:`SysidShadow`), one :class:`Nudge`
+    run per entry of :data:`NUDGES`, and the ``throughput_max()`` and
+    ``pallas_fused_ns`` solvers (the structured inverse; B4); one JSON
+    line a run."""
+    from racinglmpc_tpu_torch.ops import cuda_build, cuda_sysid
+    from racinglmpc_tpu_torch.runtime import solver_quality as sq
+    from racinglmpc_tpu_torch.utils.config import LMPCConfig, SolverConfig
+
+    cuda_build.build()
+    T = SolverConfig.throughput()
+    for b2 in (True, False):
+        lcfg = LMPCConfig(use_pallas_sysid=b2)
+        runs = [("run", T,
+                 SysidShadow(cuda_sysid, SHADOW_EVERY) if b2 else None)]
+        runs += [(f"nudge {t} {i}", T, Nudge(torch, t, i)) for t, i in NUDGES]
+        runs += [("throughput_max", SolverConfig.throughput_max(), None),
+                 ("pallas_fused_ns",
+                  dataclasses.replace(T, pallas_fused_ns=True), None)]
+        for name, solver, hook in runs:
+            r, fx, wall = quality_laps(torch, "cuda", solver=solver,
+                                       lcfg=lcfg, hook=hook)
+            line = dict(b2=b2, run=name, steps=r.steps, total=sum(r.steps),
+                        **sq.summary(r.steps, fx.oracle),
+                        rerun=sq.summary(r.steps, fx.oracle_rerun),
+                        rejected=sum(r.rejected),
+                        unconverged=sum(r.unconverged), wall_s=wall)
+            if isinstance(hook, SysidShadow):
+                line["shadow"] = dict(samples=hook.calls, worst=hook.worst,
+                                      bias=hook.bias())
+            print(json.dumps(line), flush=True)
+
+
+def quality_phase(torch, counters, layouts):
+    """Phase 11: :func:`quality_laps` on the card, its counters reset just
+    before and read just after; the criterion: cumulative lap steps within
+    1% of the oracle's (``solver_quality.CRITERION``), the record's and
+    the rerun's, every lap under 1000 steps, no NaN, rejected <= 0.5%, B1
+    and B2 once a step, 0 streamed; and B2 against its plain version on
+    every :data:`SHADOW_EVERY`-th step's sys-ID (:class:`SysidShadow`, its
+    launches apart) within phase 3's 1e-3."""
+    from racinglmpc_tpu_torch.ops import cuda_sysid
+    from racinglmpc_tpu_torch.runtime import solver_quality as sq
+
+    shadow = SysidShadow(cuda_sysid, SHADOW_EVERY)
+    for c in counters + layouts:
+        c.reset()
+    r, fx, wall = quality_laps(torch, "cuda", hook=shadow)
+    launches = {c.name: c.n for c in counters}
+    lay = {c.name: count(c) for c in layouts}
+    rec = json.loads((pathlib.Path(__file__).resolve().parent
+                      / QUALITY_RECORD).read_text())["presets"]
+    tpu = rec["throughput_f32"]["lap_steps"]
+    n = sum(r.steps)
+    summ = sq.summary(r.steps, fx.oracle)
+    rerun = sq.summary(r.steps, fx.oracle_rerun)
+    print(f"[chip_smoke] 40-lap criterion ({wall:.1f} s, {n} steps, "
+          f"{1e3 * wall / n:.2f} ms a step): lap, port float32 on the "
+          f"card, float64 oracle (the record's; the rerun's, "
+          f"{fx.rerun_env}), the reference's float32 controller "
+          f"({QUALITY_RECORD}, throughput_f32):")
+    for lap, row in enumerate(zip(r.steps, fx.oracle, fx.oracle_rerun,
+                                  tpu)):
+        print(f"[chip_smoke]   lap {lap}: {' '.join(map(str, map(int, row)))}"
+              f" (rejected {r.rejected[lap]}, unconverged "
+              f"{r.unconverged[lap]}, iters p99 {r.iters_p99[lap]})")
+    line = dict(steps=n, oracle_steps=int(fx.oracle.sum()),
+                oracle_rerun_steps=int(fx.oracle_rerun.sum()), **summ,
+                rerun=rerun, rejected_rate=sum(r.rejected) / n,
+                unconverged_rate=sum(r.unconverged) / n, wall_s=wall,
+                launches=launches, layouts=lay)
+    print(f"[chip_smoke] 40-lap criterion: {json.dumps(line)}")
+    check("quality40_kernels_once_a_step",
+          launches["admm"] == n and launches["sysid"] == n + shadow.calls
+          and lay["admm_stream"] == 0 and lay["admm_streamed"] == 0,
+          f"({n} steps, {shadow.calls} sys-ID comparisons; {launches}, "
+          f"{lay})")
+    check("quality40_sysid_vs_plain", shadow.max_abs < 1e-3,
+          f"(every {SHADOW_EVERY}th step, {shadow.calls} calls: max "
+          f"|dA|,|dB|,|dC| {shadow.max_abs:.2e}, relative "
+          f"{shadow.worst[0]:.2e} at step {shadow.worst[1]}; steadiest "
+          f"entries {shadow.bias()})")
+    check("quality40_laps_finished", len(r.steps) == QUALITY_LAPS
+          and max(r.steps) < sq.MAX_STEPS, f"(longest {max(r.steps)})")
+    check("quality40_finite", r.finite)
+    check("quality40_rejected", sum(r.rejected) <= REJECTED_SHARE * n,
+          f"({sum(r.rejected)} of {n})")
+    check("quality40_within_1pct_of_oracle",
+          max(summ["total_rel_diff_pct"], rerun["total_rel_diff_pct"])
+          <= 100 * sq.CRITERION,
+          f"(cumulative {summ['total_rel_diff_pct']:.4f}% of the record's, "
+          f"{rerun['total_rel_diff_pct']:.4f}% of the rerun's; last lap "
+          f"{summ['final_lap_rel_diff_pct']:.4f}%, "
+          f"{rerun['final_lap_rel_diff_pct']:.4f}%)")
+
+
+# C6's regime: the solves within this distance of the finish line (m)
+FINISH_LINE_M = 1.5
+
+
+def unconverged_where(torch, trace, track_len, max_iter):
+    """Where a gate phase's solves not at tolerance sit
+    (``bench.gate_laps``' ``trace``): by the arc length left to the finish
+    line, in bins of 1 m (solves, of which not at tolerance), how many lie
+    within :data:`FINISH_LINE_M`, and their ADMM iterations (mean, p50,
+    p99, at max_iter, past it: rescued)."""
+    s, it, unc = (torch.cat([t[k] for t in trace]) for k in range(3))
+    left = track_len - s.double()
+    bins = torch.clamp(left.floor().long(), min=0)
+    rows = {f"{k}-{k + 1} m": (int((bins == k).sum()),
+                               int(((bins == k) & unc).sum()))
+            for k in range(int(bins.max()) + 1) if bool((bins == k).any())}
+    n = int(unc.sum())
+    near = int((unc & (left < FINISH_LINE_M)).sum())
+    iu = it[unc].float()
+    its = ({} if n == 0 else dict(
+        mean=round(float(iu.mean()), 2), p50=float(iu.quantile(0.5)),
+        p99=float(iu.quantile(0.99)),
+        at_max_iter=int((iu == max_iter).sum()),
+        rescued=int((iu > max_iter).sum())))
+    return json.dumps(dict(
+        solves=int(unc.numel()), not_at_tolerance=n,
+        within_finish_line=near, within_m=FINISH_LINE_M,
+        by_m_to_line_solves_and_not_at_tolerance=rows, iters=its))
 
 
 def load_oracle(name: str):
@@ -1409,9 +1720,10 @@ def last_chunk_b1(torch, cuda_qp, rescue_replay, ctrl, chunk, solver, tag):
     r_args, r_kw = rescue_replay.admm_args(
         qp, rescue_replay.forced_rescue(solver), warm, None)
     pf = cuda_qp.admm_iterate_plain(*f_args, **f_kw)
-    pt = cuda_qp.admm_iterate_plain(*t_args, **t_kw)
-    with float64_products(cuda_qp):
-        pc = cuda_qp.admm_iterate_plain(*t_args, **t_kw)
+    classes = product_classes(cuda_qp, t_args, t_kw)
+    pt, pc = classes["float32"], classes["all"]
+    print(f"[chip_smoke] B1's plain version at tolerance {tag}, by the "
+          f"products rounded once from float64: {class_text(classes)}")
     pr = cuda_qp.admm_iterate_plain(*r_args, **r_kw)
     B = pr[4].numel()
     alone, outs = {}, {}
@@ -1925,6 +2237,10 @@ def main() -> int:
     # ---- phase 10: the bench's quality gate and secondary ----------------
     phase(10)
     gate_phase(torch, bench, mp, pid, counters, layouts, B, STEPS)
+
+    # ---- phase 11: the 40-lap criterion against the float64 oracle ------
+    phase(11)
+    quality_phase(torch, counters, layouts)
     phase(None)
     print(f"[chip_smoke] phase walls {phase_walls} s, total "
           f"{sum(phase_walls.values()):.1f} s")
@@ -1941,4 +2257,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--quality-triage"]:
+        import torch
+
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke: no CUDA device")
+        quality_triage(torch)
+        sys.exit(0)
     sys.exit(main())

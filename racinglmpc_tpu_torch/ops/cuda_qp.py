@@ -236,15 +236,32 @@ def _at(prod, v, Mf, iter_precision: str):
     return prod(vh, hi) + (prod(vh, lo) + prod(vl, hi))
 
 
-def vm_at(v, Mf, iter_precision: str):
-    """v.M per lane at ``iter_precision``, on ``Mf = iter_operand(M, .)``;
-    "bf16x3" combines as hh + (hl + lh), the reference's association."""
-    return _at(_vm, v, Mf, iter_precision)
+# The plain version's products by class: the exit test's A x, x.P and y.A
+# ("check"), Kinv.rhs and its refinement ("solve"), the iteration's
+# (rho z - y).A and A xt ("iterate"). A caller may give a class its own
+# (vm, mv) for another rounding (ROADMAP C6's triage,
+# ``chip_smoke.float64_products``); None takes the module's ``_vm`` and
+# ``_mv``, looked up at call time.
+PRODUCT_CLASSES = ("check", "solve", "iterate")
+PRODUCTS = dict.fromkeys(PRODUCT_CLASSES)
 
 
-def mv_at(Mf, v, iter_precision: str):
+def products(cls: str):
+    """(vm, mv) of the plain version's products of class ``cls``."""
+    return PRODUCTS[cls] or (_vm, _mv)
+
+
+def vm_at(v, Mf, iter_precision: str, cls: str = "iterate"):
+    """v.M per lane at ``iter_precision``, on ``Mf = iter_operand(M, .)``,
+    by the products of class ``cls``; "bf16x3" combines as hh + (hl + lh),
+    the reference's association."""
+    return _at(products(cls)[0], v, Mf, iter_precision)
+
+
+def mv_at(Mf, v, iter_precision: str, cls: str = "iterate"):
     """M v per lane at ``iter_precision`` (see :func:`vm_at`)."""
-    return _at(lambda a, b: _mv(b, a), v, Mf, iter_precision)
+    mv = products(cls)[1]
+    return _at(lambda a, b: mv(b, a), v, Mf, iter_precision)
 
 
 def _n_pad(n: int) -> int:
@@ -301,11 +318,12 @@ def admm_iterate_plain(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
         matrices as :func:`iter_operand` made them."""
         P, A, Kinv, pr = mats
         rhs = sigma * x - v.q + vm_at(v.rho * z - y, A, pr)
-        xt = vm_at(rhs, Kinv, pr)
+        xt = vm_at(rhs, Kinv, pr, "solve")
         for _ in range(refine_steps):
-            r = rhs - (vm_at(xt, P, pr) + sigma * xt
-                       + vm_at(v.rho * mv_at(A, xt, pr), A, pr))
-            xt = xt + vm_at(r, Kinv, pr)
+            r = rhs - (vm_at(xt, P, pr, "solve") + sigma * xt
+                       + vm_at(v.rho * mv_at(A, xt, pr, "solve"), A, pr,
+                               "solve"))
+            xt = xt + vm_at(r, Kinv, pr, "solve")
         zt = mv_at(A, xt, pr)
         x_new = alpha * xt + one_m_alpha * x
         z_rel = alpha * zt + one_m_alpha * z
@@ -314,11 +332,12 @@ def admm_iterate_plain(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
         return x_new, z_new, y_new
 
     def residuals(v, P, A, x, y):
-        Ax = _mv(A, x)
+        vm, mv = products("check")
+        Ax = mv(A, x)
         zc = torch.clamp(Ax, v.l, v.u)
         pri = ((Ax - zc) * v.E_inv).abs().amax(-1)
-        Px = _vm(x, P)
-        Aty = _vm(y, A)
+        Px = vm(x, P)
+        Aty = vm(y, A)
         dua = ((Px + v.q + Aty) * v.D).abs().amax(-1) * v.c_inv
         pri_sc = torch.maximum((Ax * v.E_inv).abs().amax(-1),
                                (zc * v.E_inv).abs().amax(-1))

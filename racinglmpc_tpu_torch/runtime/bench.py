@@ -268,15 +268,15 @@ def gate_criteria(lap_steps_mean, rejects, unconverged, batch: int,
 
 
 def _collect(st: lmpc_mod.LMPCState):
-    # per-step diagnostics: a rejected solve, and the weaker "accepted but
-    # not at tolerance"
-    return st.rejects > 0, ~st.feasible
+    # per-step diagnostics: a rejected solve, the weaker "accepted but not
+    # at tolerance", and the solve's ADMM iterations
+    return st.rejects > 0, ~st.feasible, st.iters
 
 
 def gate_laps(cfg: exp.ExperimentConfig, trk, vp, seed_laps: Sequence, *,
               laps: int, batch: int, chunk: int, max_steps: int,
               seed: int = 0, phase: int = 1, device="cuda",
-              log: Callable = _quiet):
+              log: Callable = _quiet, trace: Optional[list] = None):
     """A batched LMPC session of ``laps`` laps (the root ``bench.py``'s
     ``_run_gate_laps``): every scenario's safe set and sys-ID store seeded
     with each of ``seed_laps`` ((x (T, 6), u (T, 2), x_glob (T, 6), steps)
@@ -287,7 +287,9 @@ def gate_laps(cfg: exp.ExperimentConfig, trk, vp, seed_laps: Sequence, *,
     noise of lap ``lap`` comes from a generator seeded by
     ``experiment.stream_seed(seed, GATE, phase, lap)``. Returns per-lap
     (mean steps, rejected solves, solves not at tolerance), counted over
-    executed steps."""
+    executed steps. ``trace``, a list, gets each lap's executed solves as
+    (arc length before the step, ADMM iterations, not at tolerance), flat
+    CPU tensors."""
     L = trk.total_len
     dtype = L.dtype
     lcfg = dataclasses.replace(cfg.lmpc,
@@ -322,7 +324,10 @@ def gate_laps(cfg: exp.ExperimentConfig, trk, vp, seed_laps: Sequence, *,
                            x_glob=sr.plant_final.x_glob)
         state = lmpc_mod.lmpc_add_trajectory(state, lcfg, sr.x, sr.u,
                                              sr.x_glob, sr.steps, L)
-        rej, unc = sr.collected
+        rej, unc, its = sr.collected
+        if trace is not None:
+            trace.append(tuple(a[sr.mask].cpu()
+                               for a in (sr.x[..., 4], its, unc)))
         steps_mean.append(float(sr.steps.float().mean()))
         rejects.append(int((rej & sr.mask).sum()))
         unconv.append(int((unc & sr.mask).sum()))
@@ -343,26 +348,28 @@ def load_converged(fixture: str = CONVERGED_FIXTURE, device="cuda"):
 def converged_laps(cfg, trk, vp, *, laps: int = 8, batch: int = 8,
                    chunk: int = 100, max_steps: int = 400, seed: int = 0,
                    device="cuda", fixture: str = CONVERGED_FIXTURE,
-                   log: Callable = _quiet):
+                   log: Callable = _quiet, trace: Optional[list] = None):
     """Phase 2's session from the fixture: (per-lap mean steps, rejected,
-    unconverged), seed mean."""
+    unconverged), seed mean; ``trace`` as :func:`gate_laps`'s."""
     seed_laps, seed_mean = load_converged(fixture, device)
     return gate_laps(cfg, trk, vp, seed_laps, laps=laps, batch=batch,
                      chunk=chunk, max_steps=max_steps, seed=seed, phase=2,
-                     device=device, log=log), seed_mean
+                     device=device, log=log, trace=trace), seed_mean
 
 
 def quality_gate(cfg, trk, vp, pid_lap: Sequence, *, seed: int = 0,
                  device="cuda", laps: int = 12, batch: int = 8,
                  chunk: int = 100, max_steps: int = 400, conv_laps: int = 8,
                  fixture: str = CONVERGED_FIXTURE,
-                 log: Callable = _quiet) -> dict:
+                 log: Callable = _quiet,
+                 conv_trace: Optional[list] = None) -> dict:
     """The closed-loop quality gate on the preset the bench measures (the
     root ``bench.py:197-299``). Phase 1: ``laps`` laps seeded with
     ``pid_lap`` ((x, u, x_glob, steps) of the PID stage) ``num_ss_it``
     times; phase 2: ``conv_laps`` laps seeded from the converged laps of
     ``fixture``, where the hard FTOCPs of the 66-80-step pace live.
-    Returns :func:`gate_criteria`'s dict."""
+    Returns :func:`gate_criteria`'s dict; ``conv_trace`` gets phase 2's
+    solves (:func:`gate_laps`'s ``trace``)."""
     kw = dict(batch=batch, chunk=chunk, max_steps=max_steps, seed=seed,
               device=device, log=log)
     phase1 = gate_laps(cfg, trk, vp, [tuple(pid_lap)] * cfg.lmpc.num_ss_it,
@@ -370,7 +377,8 @@ def quality_gate(cfg, trk, vp, pid_lap: Sequence, *, seed: int = 0,
     conv = seed_mean = None
     if os.path.exists(fixture):
         conv, seed_mean = converged_laps(cfg, trk, vp, laps=conv_laps,
-                                         fixture=fixture, **kw)
+                                         fixture=fixture, trace=conv_trace,
+                                         **kw)
     return gate_criteria(*phase1, batch, conv=conv, conv_seed_mean=seed_mean,
                          fixture=fixture)
 

@@ -35,6 +35,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 import bench as jbench
+import chip_smoke
 from racinglmpc_tpu.controllers import lmpc as jlmpc
 from racinglmpc_tpu.models import dynamics as jdyn
 from racinglmpc_tpu.models import track as jtrack
@@ -193,6 +194,33 @@ def test_gate_laps_equal_reference_float64():
         device="cpu", **kw)
     assert all(v < kw["max_steps"] for v in ref[0])   # the laps finished
     assert got == tuple(ref)
+
+
+def test_gate_laps_trace_holds_every_executed_solve():
+    """``gate_laps``' ``trace``: one lap's executed solves (arc length,
+    ADMM iterations, not at tolerance), as many as the lap's steps, its
+    off-tolerance count the lap's, and ``chip_smoke.unconverged_where``
+    bins every one of them by metres to the finish line."""
+    tcfg = texp.ExperimentConfig(
+        sim=tc.SimConfig(noise=False), solver=tc.SolverConfig.throughput(),
+        lmpc=tc.LMPCConfig(max_laps=12, max_pts=1024, model_pts=512))
+    trk = ttrack.make_track(dtype=torch.float64, device="cpu")
+    seeds, _ = tbench.load_converged(device="cpu")
+    seeds = [tuple(a.double() if a.is_floating_point() else a for a in s)
+             for s in seeds]
+    trace = []
+    steps, _, unc = tbench.gate_laps(
+        tcfg, trk, tc.VehicleParams(), seeds, laps=1, batch=2, chunk=30,
+        max_steps=120, device="cpu", trace=trace)
+    s, it, off = trace[0]
+    assert len(trace) == 1 and s.numel() == it.numel() == off.numel()
+    assert s.numel() == round(2 * steps[0]) and int(off.sum()) == unc[0]
+    assert bool((it >= 0).all()) and bool((s <= trk.total_len).all())
+    where = json.loads(chip_smoke.unconverged_where(
+        torch, trace, float(trk.total_len), tcfg.solver.max_iter))
+    rows = where["by_m_to_line_solves_and_not_at_tolerance"]
+    assert sum(n for n, _ in rows.values()) == where["solves"] == s.numel()
+    assert sum(u for _, u in rows.values()) == where["not_at_tolerance"]
 
 
 def test_main_on_cpu_prints_the_reference_fields(monkeypatch, capsys):

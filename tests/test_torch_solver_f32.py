@@ -81,6 +81,7 @@ B = 8
 LKW = dict(max_laps=12, max_pts=1024, model_pts=512)
 STEPS = range(20, 141, 20)
 LATE = 210            # the finish line's regime (ROADMAP C6)
+LATES = (205, LATE, 215)  # the steps whose QPs the product classes read
 STAGE_REL = 1e-6      # Ruiz and K against the reference, relative
 FIXED_DX = 3e-2       # B1 plain vs the Pallas kernel after 16 iterations
 ONE_DX, ONE_DY = 2e-3, 5e-3   # after one iteration, to float64 and each other
@@ -204,34 +205,34 @@ def _sample(st, plant, ctrl):
                                       st.fac).iters))
 
 
-def _run(steps, late=None):
+def _run(steps, lates=()):
     """The reference's main path: a :func:`_sample` at each of ``steps``;
-    with ``late``, also the reference's own solve of step ``late - 1``
-    (iterations, feasible flags) and the port's QP built from its state at
-    step ``late`` with that state."""
+    for each step ``late`` of ``lates``, also the reference's own solve of
+    step ``late - 1`` (iterations, feasible flags) and its state and plant
+    state at step ``late``, from which the port builds that step's QP."""
     step, pstep, st, plant = _reference()
     cfg = main_path.config()
     ctrl = tlmpc.make_lmpc(cfg.lmpc, make_track(device="cpu"), cfg.solver,
                            cfg.sim.dt)
     key = jax.random.PRNGKey(0)
-    out = []
-    for t in range(max(steps) + 1 if late is None else late):
+    out, late = [], {}
+    for t in range(max((*steps, *lates)) + 1):
+        if t in lates:
+            late[t] = dict(
+                iters=np.asarray(st.iters), feasible=np.asarray(st.feasible),
+                state=jax.tree_util.tree_map(np.asarray, st._asdict()),
+                x0=torch.from_numpy(np.array(plant.x)))
         if t in steps:
             out.append(_sample(st, plant, ctrl))
         st, u = step(st, plant.x, None)
         plant = pstep(plant, u, jax.random.split(jax.random.fold_in(key, t),
                                                  B))
-    if late is None:
-        return out, None
-    return out, dict(iters=np.asarray(st.iters),
-                     feasible=np.asarray(st.feasible),
-                     state=jax.tree_util.tree_map(np.asarray, st._asdict()),
-                     x0=torch.from_numpy(np.array(plant.x)))
+    return out, late
 
 
 @pytest.fixture(scope="module")
 def run():
-    return _run(STEPS, LATE)
+    return _run(STEPS, LATES)
 
 
 @pytest.fixture(scope="module")
@@ -454,12 +455,53 @@ def test_finish_line_stall_is_float32s_certificate(run):
     the tolerance there (with products rounded once from float64 more
     lanes do), but the solutions are good: every lane's first input lies
     within U0_TOL of the QP's float64 solution at a tight tolerance."""
-    d = _finish_line(run[1])
+    d = _finish_line(run[1][LATE])
     assert (d["ref_iters"] >= TCFG.max_iter).sum() >= B - 1, d
     assert (~d["ref_feasible"]).sum() >= B - 1, d
     assert (d["iters"] >= TCFG.max_iter).sum() >= B - 1, d
     assert d["solved_once"] > d["solved32"], d
     assert d["exact_pri"] < 1e-6 and d["u0_off"] < U0_TOL, d
+
+
+def _class_counts(late):
+    """Lanes B1's plain version brings to tolerance on the port's QPs of
+    the steps ``LATES``, summed over them, by
+    :func:`chip_smoke.product_classes`: float32 products, each class of
+    ``cuda_qp.PRODUCTS`` alone rounded once from float64, the exit test
+    wholly in float64, and every class rounded once."""
+    ctrl = tlmpc.make_lmpc(main_path.config().lmpc, make_track(device="cpu"),
+                           TCFG, 0.1)
+    counts = {}
+    for t in LATES:
+        ts = convert.from_jax(tlmpc.LMPCState, late[t]["state"],
+                              device="cpu")
+        qp = ctrl.build_qp(ts, late[t]["x0"])[0]
+        args, kw = rescue_replay.admm_args(qp, TCFG, (ts.warm_x, ts.warm_y),
+                                           ts.fac)
+        for k, o in chip_smoke.product_classes(cuda_qp, args, kw).items():
+            counts[k] = counts.get(k, 0) + int(o[5].sum())
+    return counts
+
+
+def test_finish_line_floor_is_no_single_product_class(run):
+    """ROADMAP C6, step 1: which products' rounding sets the finish line's
+    floor. On the QPs of steps 205, 210 and 215 (24 lanes) float32 brings
+    no lane to tolerance and every class rounded once from float64
+    brings 9 (CPU, one thread). The exit test's products change no
+    iterate: rounded once, or the whole test in float64 (float64
+    accumulators for its three products and four maxima), they certify
+    no lane that float32 does not; Kinv.rhs with its refinement ("solve")
+    certifies 2, the iteration's A x and A'(rho z - y) ("iterate") none.
+    No class carries the count, so no single class is repaired (the
+    floor is the float32 iterates' own). Held: the exit test's classes
+    within one lane of float32, every single class below half of what all
+    classes together add to float32, which adds at least 4."""
+    c = _class_counts(run[1])
+    gain = {k: v - c["float32"] for k, v in c.items()}
+    assert gain["all"] >= 4, c
+    assert abs(gain["check"]) <= 1 and abs(gain["check64"]) <= 1, c
+    assert all(gain[k] < gain["all"] / 2
+               for k in (*cuda_qp.PRODUCT_CLASSES, "check64")), c
 
 
 def _print_stages(samples, late):
@@ -481,11 +523,12 @@ def _print_stages(samples, late):
     print(f"one iteration: {_one_iteration(samples)}")
     print(f"interpret mode, 64 iterations, step {STEPS[2]}: "
           f"{_interpret_stall(samples[2])}")
-    print(f"step {LATE}: {_finish_line(late)}")
+    print(f"step {LATE}: {_finish_line(late[LATE])}")
+    print(f"product classes, steps {LATES}: {_class_counts(late)}")
 
 
 if __name__ == "__main__":
     # The numbers the tests hold, by hand from the repository root (in a
     # parent checkout, the numbers before a change):
     #   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_solver_f32.py
-    _print_stages(*_run(STEPS, LATE))
+    _print_stages(*_run(STEPS, LATES))
