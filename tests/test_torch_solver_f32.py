@@ -48,7 +48,10 @@ The same run goes on to step 210, ~1 m before the finish line, where the
 reference's own float32 controller and the port's solve of its QP run to
 max_iter: float32's dual residual cannot certify the tolerance there, yet
 the first input lies within 1e-2 of the QP's float64 solution (C6's open
-part).
+part). On the QPs of steps 205, 210 and 215 no single class of B1's
+products (the exit test's, Kinv.rhs with its refinement, the iteration's
+A products), rounded once from float64, certifies the lanes that all of
+them together do.
 """
 import dataclasses
 

@@ -23,8 +23,9 @@ reference's own harness, ``examples/solver_quality.py``, on the CPU.
   ``run_jax`` with the same preset on the same draws, for 2 laps: equal.
 - ``chip_smoke.quality_laps`` on the CPU (the kernels' plain versions, the
   phase-11 configuration) runs one lap: finished, finite, nothing
-  rejected, within 10 steps of the oracle's lap (the reference's float32
-  controller ran 213 against the oracle's 203 on its TPU); phase 11's B2
+  rejected, within 15 steps of the oracle's lap (float32 runs that differ
+  only in rounding ran 206-217 against the oracle's 203, the reference's
+  213 on its TPU); phase 11's B2
   comparison hook sees no difference there and moves no bit, and the
   triage's one-ulp nudge moves one component at one step.
 """
@@ -50,7 +51,9 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RECORD = json.loads((ROOT / chip_smoke.QUALITY_RECORD).read_text())["presets"]
 PARITY_LAPS = 2
-ONE_LAP_STEPS = 10     # the CPU float32 lap against the oracle's
+# the first float32 lap against the oracle's 203 steps: float32 runs
+# that differ only in rounding gave 206-217 (the reference's on its TPU 213)
+ONE_LAP_STEPS = 15
 
 
 def _harness():
