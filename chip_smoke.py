@@ -157,16 +157,18 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    and by ADMM iterations (ROADMAP C9);
 11. the 40-lap lap-time criterion (``runtime/solver_quality.py``, the
    port's counterpart of ``examples/solver_quality.py``): one scenario of
-   ``throughput()`` in float32 on the card, ``LMPCConfig()`` with B2
-   engaged, driven through the float64 NumPy plant of
-   ``tests/oracles/ref_plant.py`` with the draws of
+   ``throughput()`` in float32 on the card with ``LMPCConfig()``, the
+   record's own configuration (B1 drives the QP; by the reference's rule
+   the sys-ID is the plain one), driven through the float64 NumPy plant
+   of ``tests/oracles/ref_plant.py`` with the draws of
    ``fixtures/solver_quality_40lap_v1.npz`` for 40 laps, counters reset
    just before and read just after; every lap's steps printed beside the
    float64 oracle's (the fixture) and the reference's float32 controller's
    (``BENCH_solver_quality_40lap_tpu.json``); cumulative lap steps within
    1% of the oracle's, every lap under 1000 steps, no NaN, rejected solves
-   at most 0.5%, B1 and B2 launched once a step and no scenario streamed.
-   Each phase's wall is printed;
+   at most 0.5%, B1 launched once a step and no scenario streamed, and B2
+   launched once a step on that step's sys-ID inputs, within 1e-3 of the
+   plain sys-ID the step ran. Each phase's wall is printed;
 12. prints one JSON line of kernel summaries (B1 and B4 also at each
    lowered precision, their launches from phase 9; a variant's
    ``max_abs_err`` is that of the random-QP check, ``ftocp_max_abs_err``
@@ -179,10 +181,11 @@ any phase fails. It imports nothing of JAX.
 
     python3 chip_smoke.py --quality-triage
 
-runs phase 11's 40 laps alone, with B2 engaged and with the plain sys-ID,
-each also with a one-float32-ulp nudge of the controller's state at one
-step and with the ``throughput_max()`` and ``pallas_fused_ns`` solvers:
-how far float32's rounding moves the criterion (``quality_triage``).
+runs phase 11's 40 laps alone, 16 draws with B2 engaged and 16 with the
+plain sys-ID (the run and 15 one-float32-ulp nudges of the controller's
+state at one step each), eight worker processes at once on the card
+(~21 min on one H100): how far float32's rounding moves the criterion
+(``quality_triage``).
 """
 from __future__ import annotations
 
@@ -1129,10 +1132,12 @@ def quality_laps(torch, device, laps=QUALITY_LAPS, solver=None,
                  dtype=None, lcfg=None, log=None, hook=None):
     """The 40-lap criterion's run (phase 11; ``device="cpu"`` runs the
     kernels' plain versions): the port's controller, by default the
-    ``throughput()`` solver in float32 with B2 engaged, through the float64
-    NumPy plant of ``tests/oracles/ref_plant.py`` with the committed draws
-    (``runtime/solver_quality``; ``hook`` as its ``run_laps``'). Returns
-    (laps, fixture, wall s)."""
+    criterion's own configuration, the ``throughput()`` solver in float32
+    with ``LMPCConfig()`` (B1 engaged; B2 not, by the reference's rule:
+    ``use_pallas_sysid`` is off, as in the record's run), through the
+    float64 NumPy plant of ``tests/oracles/ref_plant.py`` with the
+    committed draws (``runtime/solver_quality``; ``hook`` as its
+    ``run_laps``'). Returns (laps, fixture, wall s)."""
     from racinglmpc_tpu_torch.models.track import make_track
     from racinglmpc_tpu_torch.runtime import solver_quality as sq
     from racinglmpc_tpu_torch.utils.config import LMPCConfig, SolverConfig
@@ -1141,7 +1146,7 @@ def quality_laps(torch, device, laps=QUALITY_LAPS, solver=None,
     cpu = torch.device(device).type == "cpu"
     solver = solver or dataclasses.replace(SolverConfig.throughput(),
                                            pallas_interpret=cpu)
-    lcfg = lcfg or LMPCConfig(use_pallas_sysid=True, sysid_interpret=cpu)
+    lcfg = lcfg or LMPCConfig()
     ref_plant = load_oracle("ref_plant")
     fx = sq.load_fixture()
     curv = ref_plant.np_curvature_fn(make_track(dtype=torch.float64,
@@ -1155,7 +1160,7 @@ def quality_laps(torch, device, laps=QUALITY_LAPS, solver=None,
 
 
 class SysidShadow:
-    """A :func:`quality_laps` hook: every ``every``-th step, B2 against its
+    """A :func:`quality_laps` hook: on every step, B2 against its
     plain version on that step's store and horizon (the sys-ID the step
     is about to run). Keeps the largest |dA|, |dB|, |dC| (``max_abs``),
     that relative to the plain version's largest entry and the step it
@@ -1164,16 +1169,14 @@ class SysidShadow:
     how often the kernel lies above: a kernel that rounds alike leaves no
     entry with a steady sign (:meth:`bias`)."""
 
-    def __init__(self, cuda_sysid, every):
-        self.mod, self.every, self.t = cuda_sysid, every, 0
+    def __init__(self, cuda_sysid):
+        self.mod, self.t = cuda_sysid, 0
         self.worst, self.calls, self.n = (0.0, None), 0, 1
         self.max_abs = 0.0
         self.diff = self.mag = self.above = None
 
     def __call__(self, ctrl, state, x):
         self.t += 1
-        if (self.t - 1) % self.every:
-            return
         N = self.n = ctrl.cfg.N
         args = (state.store, ctrl.trk, state.x_lin[:, :N].contiguous(),
                 state.u_lin.contiguous(), ctrl.cfg, ctrl.dt_ctrl)
@@ -1229,60 +1232,116 @@ class Nudge:
         self.t += 1
 
 
-# phase 11 holds B2 against its plain version on every SHADOW_EVERY-th step
-SHADOW_EVERY = 5
-# the one-ulp nudges of the triage (step, state component)
-NUDGES = ((0, 0), (1000, 4), (2000, 5), (500, 1), (1500, 2), (2500, 3))
+# the one-ulp nudges of the triage (step, state component): with the
+# unnudged run, 16 draws a configuration
+NUDGES = ((0, 0), (1000, 4), (2000, 5), (500, 1), (1500, 2), (2500, 3),
+          (250, 0), (750, 1), (1250, 2), (1750, 3), (2250, 4), (2750, 5),
+          (100, 5), (3000, 0), (1100, 3))
+# worker processes of the triage at once (one card, eight CPU cores)
+TRIAGE_WORKERS = 8
+
+
+def quality_draw(torch, b2, nudge):
+    """One draw of the triage (``--quality-draw B2 STEP COMPONENT``, a
+    worker process): phase 11's run with B2 engaged or not, nudged by
+    :class:`Nudge` unless STEP is -1, and with B2 engaged held against its
+    plain version on every step (:class:`SysidShadow`); one JSON line."""
+    from racinglmpc_tpu_torch.ops import cuda_sysid
+    from racinglmpc_tpu_torch.runtime import solver_quality as sq
+    from racinglmpc_tpu_torch.utils.config import LMPCConfig
+
+    hook = (Nudge(torch, *nudge) if nudge[0] >= 0
+            else SysidShadow(cuda_sysid) if b2 else None)
+    r, fx, wall = quality_laps(torch, "cuda",
+                               lcfg=LMPCConfig(use_pallas_sysid=b2),
+                               hook=hook)
+    line = dict(b2=b2, nudge=list(nudge), steps=r.steps,
+                total=sum(r.steps), **sq.summary(r.steps, fx.oracle),
+                rerun=sq.summary(r.steps, fx.oracle_rerun),
+                rejected=sum(r.rejected), unconverged=sum(r.unconverged),
+                wall_s=wall)
+    if isinstance(hook, SysidShadow):
+        line["shadow"] = dict(samples=hook.calls, max_abs=hook.max_abs,
+                              worst=hook.worst, bias=hook.bias())
+    print(json.dumps(line), flush=True)
+
+
+def rank_sum_z(a, b):
+    """Mann-Whitney's normal approximation: how far ``a``'s rank sum in
+    ``a + b`` lies above its mean under no difference, in standard
+    deviations (ties share their mean rank)."""
+    vals = sorted(a + b)
+    rank = {v: sum(i + 1 for i, w in enumerate(vals) if w == v)
+            / vals.count(v) for v in vals}
+    n, m = len(a), len(b)
+    return ((sum(rank[v] for v in a) - n * (n + m + 1) / 2)
+            / (n * m * (n + m + 1) / 12) ** 0.5)
 
 
 def quality_triage(torch):
     """``python3 chip_smoke.py --quality-triage``: how far the 40-lap
     criterion moves with float32's rounding on the card. For B2 engaged
-    (``use_pallas_sysid``) and not (the plain sys-ID): the run itself (B2
-    engaged, with :class:`SysidShadow`), one :class:`Nudge`
-    run per entry of :data:`NUDGES`, and the ``throughput_max()`` and
-    ``pallas_fused_ns`` solvers (the structured inverse; B4); one JSON
-    line a run."""
-    from racinglmpc_tpu_torch.ops import cuda_build, cuda_sysid
-    from racinglmpc_tpu_torch.runtime import solver_quality as sq
-    from racinglmpc_tpu_torch.utils.config import LMPCConfig, SolverConfig
+    (``use_pallas_sysid``) and not (the plain sys-ID), the run itself and
+    one :class:`Nudge` run per entry of :data:`NUDGES`, each in a worker
+    process (:func:`quality_draw`), :data:`TRIAGE_WORKERS` at once; one
+    JSON line a draw, then per configuration the cumulative differences
+    (% of the record's oracle) and the draws within 1%, and the rank-sum z
+    of B2 engaged against not."""
+    import subprocess
+
+    from racinglmpc_tpu_torch.ops import cuda_build
 
     cuda_build.build()
-    T = SolverConfig.throughput()
-    for b2 in (True, False):
-        lcfg = LMPCConfig(use_pallas_sysid=b2)
-        runs = [("run", T,
-                 SysidShadow(cuda_sysid, SHADOW_EVERY) if b2 else None)]
-        runs += [(f"nudge {t} {i}", T, Nudge(torch, t, i)) for t, i in NUDGES]
-        runs += [("throughput_max", SolverConfig.throughput_max(), None),
-                 ("pallas_fused_ns",
-                  dataclasses.replace(T, pallas_fused_ns=True), None)]
-        for name, solver, hook in runs:
-            r, fx, wall = quality_laps(torch, "cuda", solver=solver,
-                                       lcfg=lcfg, hook=hook)
-            line = dict(b2=b2, run=name, steps=r.steps, total=sum(r.steps),
-                        **sq.summary(r.steps, fx.oracle),
-                        rerun=sq.summary(r.steps, fx.oracle_rerun),
-                        rejected=sum(r.rejected),
-                        unconverged=sum(r.unconverged), wall_s=wall)
-            if isinstance(hook, SysidShadow):
-                line["shadow"] = dict(samples=hook.calls, worst=hook.worst,
-                                      bias=hook.bias())
-            print(json.dumps(line), flush=True)
+    jobs = [(b2, nudge) for b2 in (True, False)
+            for nudge in ((-1, 0),) + NUDGES]
+    running, lines = [], []
+
+    def reap(p):
+        out, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"a triage draw exited {p.returncode}")
+        lines.append(json.loads(out.strip().splitlines()[-1]))
+        print(json.dumps(lines[-1]), flush=True)
+
+    try:
+        for b2, (t, i) in jobs:
+            if len(running) == TRIAGE_WORKERS:
+                reap(running.pop(0))
+            running.append(subprocess.Popen(
+                [sys.executable, str(pathlib.Path(__file__).resolve()),
+                 "--quality-draw", str(int(b2)), str(t), str(i)],
+                stdout=subprocess.PIPE, text=True))
+        while running:
+            reap(running.pop(0))
+    finally:
+        for p in running:
+            p.kill()
+            p.wait()
+    pct = {b2: [ln["total_rel_diff_pct"] for ln in lines if ln["b2"] == b2]
+           for b2 in (True, False)}
+    for b2, v in pct.items():
+        print(json.dumps(dict(
+            b2=b2, draws=len(v), within_1pct=sum(x <= 1 for x in v),
+            median=statistics.median(v), mean=statistics.fmean(v),
+            pct=sorted(v))), flush=True)
+    print(json.dumps(dict(rank_sum_z_b2_engaged=rank_sum_z(pct[True],
+                                                           pct[False]))))
 
 
 def quality_phase(torch, counters, layouts):
-    """Phase 11: :func:`quality_laps` on the card, its counters reset just
-    before and read just after; the criterion: cumulative lap steps within
-    1% of the oracle's (``solver_quality.CRITERION``), the record's and
-    the rerun's, every lap under 1000 steps, no NaN, rejected <= 0.5%, B1
-    and B2 once a step, 0 streamed; and B2 against its plain version on
-    every :data:`SHADOW_EVERY`-th step's sys-ID (:class:`SysidShadow`, its
-    launches apart) within phase 3's 1e-3."""
+    """Phase 11: :func:`quality_laps` on the card in the criterion's own
+    configuration (the reference's: B1 drives the QP, the plain sys-ID the
+    linearization), its counters reset just before and read just after;
+    the criterion: cumulative lap steps within 1% of the oracle's
+    (``solver_quality.CRITERION``), the record's and the rerun's, every
+    lap under 1000 steps, no NaN, rejected <= 0.5%, B1 once a step, 0
+    streamed; and B2 launched on every step's sys-ID inputs and held
+    against the plain version the step runs (:class:`SysidShadow`) within
+    phase 3's 1e-3, once a step."""
     from racinglmpc_tpu_torch.ops import cuda_sysid
     from racinglmpc_tpu_torch.runtime import solver_quality as sq
 
-    shadow = SysidShadow(cuda_sysid, SHADOW_EVERY)
+    shadow = SysidShadow(cuda_sysid)
     for c in counters + layouts:
         c.reset()
     r, fx, wall = quality_laps(torch, "cuda", hook=shadow)
@@ -1311,12 +1370,12 @@ def quality_phase(torch, counters, layouts):
                 launches=launches, layouts=lay)
     print(f"[chip_smoke] 40-lap criterion: {json.dumps(line)}")
     check("quality40_kernels_once_a_step",
-          launches["admm"] == n and launches["sysid"] == n + shadow.calls
+          launches["admm"] == n and launches["sysid"] == shadow.calls == n
           and lay["admm_stream"] == 0 and lay["admm_streamed"] == 0,
           f"({n} steps, {shadow.calls} sys-ID comparisons; {launches}, "
           f"{lay})")
     check("quality40_sysid_vs_plain", shadow.max_abs < 1e-3,
-          f"(every {SHADOW_EVERY}th step, {shadow.calls} calls: max "
+          f"(every step, {shadow.calls} calls: max "
           f"|dA|,|dB|,|dC| {shadow.max_abs:.2e}, relative "
           f"{shadow.worst[0]:.2e} at step {shadow.worst[1]}; steadiest "
           f"entries {shadow.bias()})")
@@ -2257,11 +2316,15 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--quality-triage"]:
+    if sys.argv[1:2] in (["--quality-triage"], ["--quality-draw"]):
         import torch
 
         if not torch.cuda.is_available():
             sys.exit("chip_smoke: no CUDA device")
-        quality_triage(torch)
+        if sys.argv[1] == "--quality-draw":
+            quality_draw(torch, bool(int(sys.argv[2])),
+                         (int(sys.argv[3]), int(sys.argv[4])))
+        else:
+            quality_triage(torch)
         sys.exit(0)
     sys.exit(main())
