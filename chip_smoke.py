@@ -539,6 +539,24 @@ class float64_products:
         self.mod.PRODUCTS.update(self.saved)
 
 
+def rescue_counter_check(torch, cuda_qp, tracing, layout, args, kw, kr):
+    """B1's forced rescue with the rescue's work counter armed (a tracing
+    session) against ``kr``, the same call with its pointer null: the same
+    bits, and as many lanes counted as ``flags[:, 2]`` marks."""
+    with tracing.session() as rec:
+        kc = cuda_qp.admm_iterate(*args, **kw, layout=layout)
+    c = {k.split(".")[-1]: v for k, v in rec.counts.items()
+         if k.startswith("admm.rescue.")}
+    same = all(bool(torch.equal(a, b)) for a, b in zip(kr, kc))
+    lanes = int(kr[6].sum())
+    check(f"admm_{layout}_rescue_counter", same and c["lanes"] == lanes
+          and c["lanes"] <= c["ns_iters"] <= 2 * lanes * kw["ns_max_iters"],
+          f"(same bits {same}; counted {c}, flags[:, 2] {lanes}; "
+          f"Newton-Schulz iterations a rescued lane "
+          f"{c['ns_iters'] / max(c['lanes'], 1):.2f})")
+    return c
+
+
 def product_classes(cuda_qp, args, kw):
     """B1's plain version at tolerance on one batch (``admm_iterate``'s
     arguments) with float32 products, with one class of products at a time
@@ -1843,7 +1861,7 @@ def main() -> int:
     from racinglmpc_tpu_torch.runtime import bench
     from racinglmpc_tpu_torch.runtime import experiment as exp
     from racinglmpc_tpu_torch.runtime import (kernel_bench, main_path,
-                                              rescue_replay)
+                                              rescue_replay, tracing)
     from racinglmpc_tpu_torch.utils.config import (LMPCConfig, SimConfig,
                                                    SolverConfig)
 
@@ -2151,6 +2169,8 @@ def main() -> int:
         check(f"admm_{name}_streamed_scenarios",
               cuda_qp.streamed.value() == want,
               f"({cuda_qp.streamed.value()}, expected {want})")
+        rescue_counter_check(torch, cuda_qp, tracing, name, r_args, r_kw,
+                             kr)
     k = cuda_qp.admm_iterate(*args, **kw)
     k2 = cuda_qp.admm_iterate(*args, **kw)
     check("admm_resident_same_bits_twice",

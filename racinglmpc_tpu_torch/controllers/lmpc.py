@@ -25,6 +25,7 @@ from racinglmpc_tpu_torch.models import sysid
 from racinglmpc_tpu_torch.models import track as track_mod
 from racinglmpc_tpu_torch.ops import cuda_sysid, kkt_band
 from racinglmpc_tpu_torch.ops import qp as qp_mod
+from racinglmpc_tpu_torch.runtime import tracing
 from racinglmpc_tpu_torch.utils.batched import lane_where as _w
 from racinglmpc_tpu_torch.utils.config import LMPCConfig, SolverConfig
 
@@ -219,6 +220,7 @@ def _select_lap_points(ss: SafeSet, ext: ExtBuffer, lap: torch.Tensor,
     return pts, u_pts, q_pts
 
 
+@tracing.traced("ctrl.terminal_set")
 def select_terminal_set(ss: SafeSet, ext: ExtBuffer, zt, x_pred, time_step,
                         cfg: LMPCConfig, track_len):
     """Terminal-set data for one solve: (ss_pts (B, 6, K), succ_x (B, 6, K),
@@ -306,6 +308,7 @@ def init_lmpc_state(cfg: LMPCConfig, batch: int, dtype=torch.float32,
     )
 
 
+@tracing.traced("lap.closure")
 def lmpc_add_trajectory(state: LMPCState, cfg: LMPCConfig, x, u, x_glob,
                         steps, track_len, add_to_model: bool = True
                         ) -> LMPCState:
@@ -353,6 +356,7 @@ class LMPCController:
                 and self.cfg.model_pts % 128 == 0
                 and (self.trk.s0.is_cuda or self.cfg.sysid_interpret))
 
+    @tracing.traced("ctrl.sysid")
     def sysid(self, store, x_lin, u_lin):
         if self.use_kernel_sysid:
             return cuda_sysid.local_linearization_horizon(
@@ -382,16 +386,26 @@ class LMPCController:
                              qfun_sel=qfun_sel)
         return qp, zt, succ_x, succ_u
 
+    @tracing.traced("ctrl.step")
     def step(self, state: LMPCState, x0: torch.Tensor, noise=None):
         """One batched LMPC control step (``noise`` is unused: the
         controller is deterministic). Returns (state, u (B, 2))."""
-        cfg, dims = self.cfg, self.dims
-        dtype = self.dtype
-        x0c = x0.to(dtype)
-        qp, zt, succ_x, succ_u = self.build_qp(state, x0c)
+        dims = self.dims
+        qp, zt, succ_x, succ_u = self.build_qp(state, x0)
         sol = qp_mod.solve(qp, self.solver_cfg,
                            warm=(state.warm_x, state.warm_y), fac=state.fac,
                            structure=kkt_band.band_structure(dims.N, dims.K))
+        return self.accept(state, x0, sol, zt, succ_x, succ_u)
+
+    @tracing.traced("ctrl.accept")
+    def accept(self, state: LMPCState, x0: torch.Tensor, sol, zt, succ_x,
+               succ_u):
+        """Step 5 of a control step: accept or hold the solve ``sol``, the
+        PID fallback, the shifted warm start, zt and addPoint. Returns
+        (state, u (B, 2))."""
+        cfg, dims = self.cfg, self.dims
+        dtype = self.dtype
+        x0c = x0.to(dtype)
         x_pred, u_pred, _, lam, _ = ocp.unpack(dims, sol.x)
         ok = (torch.isfinite(sol.x).all(-1)
               & (sol.pri_res < self.solver_cfg.accept_pri_res))

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from racinglmpc_tpu_torch.ops.qp import QPData
+from racinglmpc_tpu_torch.runtime import tracing
 from racinglmpc_tpu_torch.utils.config import NU, NX
 
 
@@ -182,6 +183,7 @@ def make_templates(*, N: int, Q, R, dR, Qf, q_slack, x_ref, ey_max: float,
         L0=t(L0), idx_A=ti(idx_A), idx_B=ti(idx_B))
 
 
+@tracing.traced("ctrl.assemble")
 def assemble_qp(dims: FTOCPDims, tmpl: FTOCPTemplates, dyn: StageDynamics,
                 x0: torch.Tensor, u_old: torch.Tensor, dR,
                 ss_points: Optional[torch.Tensor] = None,

@@ -121,12 +121,15 @@ admm_main_resident(const QPParams p, const float* P_, const float* Kinv_,
 // K2 = (A' (rho A)) s + P + sigma I, its inverse from Jacobi or Kinv / s,
 // written to the first n^2 floats of the lane's workspace. kpad:
 // per-scenario pad-block scalar of Kinv (B4's refreshed inverse), or
-// nullptr when Kinv's pad block is zero (B1). Its own kernel: beside the
-// ADMM core's state the product core spilled.
+// nullptr when Kinv's pad block is zero (B1). count: nullptr, or the
+// rescue's work counter, to which each rescued lane adds 1 (count[0]), its
+// Newton-Schulz iterations of both passes (count[1]) and 1 where it ran
+// the warm test's product (count[2]). Its own kernel: beside the ADMM
+// core's state the product core spilled.
 __global__ void __launch_bounds__(NT, 1)
 admm_rescue_prologue(const QPParams p, const float* P_, const float* Kinv_,
                      const float* A_, const float* vecs, const float* kpad,
-                     const int* flags, float* ws) {
+                     const int* flags, float* ws, int* count) {
   const int b = blockIdx.x;
   if (flags[b * NFLAG + 2] == 0) return;
   const int n = p.n, m = p.m, tid = threadIdx.x;
@@ -156,6 +159,12 @@ admm_rescue_prologue(const QPParams p, const float* P_, const float* Kinv_,
   const float kp = kpad ? kpad[b] : 0.f;
   const float pad_d = 1.f - kp / s_r;
   const float pad_sq = p.n_pad ? (float)p.n_pad * pad_d * pad_d : 0.f;
+  // each count added where it is known: nothing stays live across the
+  // Newton-Schulz passes for it (held across them, ptxas spilled)
+  if (count && tid == 0) {
+    atomicAdd(count, 1);
+    if (pad_sq < 0.81f) atomicAdd(count + 2, 1);
+  }
   bool use_warm = false;
   if (pad_sq < 0.81f) {
     for (size_t e = tid; e < nn; e += NT) X[e] = Kinv[e] / s_r;
@@ -169,11 +178,13 @@ admm_rescue_prologue(const QPParams p, const float* P_, const float* Kinv_,
   float xp = use_warm ? kp / s_r : xj_pad;
   int its;
   const float r1 = ns_run(p, n, K2, X, Y, R, xp, stage, c.red, &its, nullptr);
+  if (count && tid == 0) atomicAdd(count + 1, its);
   if (!isfinite(r1) || r1 > 50.f * p.ns_tol) {
     write_jacobi(n, dg, cjm, X);
     xp = xj_pad;
   }
   ns_run(p, n, K2, X, Y, R, xp, stage, c.red, &its, nullptr);
+  if (count && tid == 0) atomicAdd(count + 1, its);
   for (size_t e = tid; e < nn; e += NT) K2[e] = X[e];   // K2 is done with
 }
 
@@ -313,14 +324,14 @@ extern "C" int rl_admm_rescue(QPParams p, const float* P, const float* Kinv,
                               const float* vecs, const float* cinv,
                               const float* kpad, float* xo, float* zo,
                               float* yo, float* stats, int* flags, float* ws,
-                              int layout, int B, void* stream) {
+                              int* count, int layout, int B, void* stream) {
   if (B <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t pro = prologue_smem(p.n, p.m);
   int e = set_smem(reinterpret_cast<const void*>(admm_rescue_prologue), pro);
   if (e) return e;
   admm_rescue_prologue<<<B, NT, pro, st>>>(p, P, Kinv, A, vecs, kpad, flags,
-                                           ws);
+                                           ws, count);
   e = static_cast<int>(cudaGetLastError());
   if (e) return e;
   const size_t smem = rl_admm_smem_bytes(p.n, p.m, p.nnz_cap, layout);

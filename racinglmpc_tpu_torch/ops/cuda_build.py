@@ -47,41 +47,6 @@ SMEM_RESERVED = 1_024
 REGS_PER_SM = 65_536
 
 
-class LaunchCounter:
-    """Launches of one kernel; its wrapper adds one per launch."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.n = 0
-
-    def reset(self) -> None:
-        self.n = 0
-
-
-class ScenarioCounter:
-    """Scenarios a kernel marked (e.g. ran in its streaming layout), summed
-    on the device: the kernel adds one per scenario with an integer atomic,
-    so counting costs no host sync; :meth:`value` reads it (and syncs)."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self._t = {}
-
-    def tensor(self, device) -> torch.Tensor:
-        """The (1,) int32 counter on ``device`` the kernel adds to."""
-        key = torch.device(device)
-        if key not in self._t:
-            self._t[key] = torch.zeros((1,), dtype=torch.int32, device=key)
-        return self._t[key]
-
-    def reset(self) -> None:
-        for t in self._t.values():
-            t.zero_()
-
-    def value(self) -> int:
-        return sum(int(t.item()) for t in self._t.values())
-
-
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -68,20 +68,25 @@ from typing import NamedTuple, Tuple
 import torch
 
 from racinglmpc_tpu_torch.ops import cuda_build
+from racinglmpc_tpu_torch.runtime import tracing
 from racinglmpc_tpu_torch.utils.batched import lane_where as _w
 from racinglmpc_tpu_torch.utils.batched import mv as _mv
 from racinglmpc_tpu_torch.utils.batched import vm as _vm
 
 _BIG = 1e30
 _LANE = 128
-launches = cuda_build.LaunchCounter("admm")
-layout_launches = {"resident": cuda_build.LaunchCounter("admm_resident"),
-                   "stream": cuda_build.LaunchCounter("admm_stream")}
-streamed = cuda_build.ScenarioCounter("admm_streamed")
+launches = tracing.LaunchCounter("admm")
+layout_launches = {"resident": tracing.LaunchCounter("admm_resident"),
+                   "stream": tracing.LaunchCounter("admm_stream")}
+streamed = tracing.ScenarioCounter("admm_streamed")
+# the rescue prologue's work while a tracing session is armed: rescued
+# lanes, their Newton-Schulz iterations (both passes) and warm tests run
+rescue_work = tracing.ScenarioCounter(
+    "admm.rescue", ("lanes", "ns_iters", "warm_tests"), armed_only=True)
 LAYOUTS = ("resident", "stream")
 ITER_PRECISIONS = ("highest", "bf16x3", "default")
 # launches of the main kernel's instantiation at each iteration precision
-precision_launches = {p: cuda_build.LaunchCounter(f"admm_{p}")
+precision_launches = {p: tracing.LaunchCounter(f"admm_{p}")
                       for p in ITER_PRECISIONS}
 
 # shared memory of one H100 SM and the most one CTA may take (bytes), the
@@ -444,6 +449,7 @@ def _rescue_kinv(P, A, Kinv, kinv_pad, rho, sigma: float, s: float,
         while True:
             act = (r > ns_tol) & (it < ns_max_iters)
             if not bool(act.any()):
+                its.append(it)
                 return X, r, xp
             R = eye - K2 @ X
             rmax = R.abs().amax((1, 2))
@@ -455,9 +461,15 @@ def _rescue_kinv(P, A, Kinv, kinv_pad, rho, sigma: float, s: float,
             xp = torch.where(act, xp + xp * (1.0 - xp), xp)
             it = it + act.to(torch.int32)
 
+    its = []
     X1, r1, xp1 = ns_run(Xi, xp_i)
     bad = ~torch.isfinite(r1) | (r1 > 50 * ns_tol)
     X2, _, _ = ns_run(_w(bad, Xj, X1), torch.where(bad, xj_pad, xp1))
+    if tracing.armed():   # what the kernel adds to rescue_work
+        cnt = rescue_work.tensor(dev)
+        cnt[0] += Bsz
+        cnt[1] += (its[0] + its[1]).sum().to(torch.int32)
+        cnt[2] += try_warm.sum().to(torch.int32)
     return X2
 
 
@@ -513,7 +525,7 @@ def _launchers(lib: ctypes.CDLL):
                              [_Params] + [ctypes.c_void_p] * 15
                              + [ctypes.c_int] + tail),
         rescue=cuda_build.bind(lib, "rl_admm_rescue",
-                               [_Params] + [ctypes.c_void_p] * 13 + tail),
+                               [_Params] + [ctypes.c_void_p] * 14 + tail),
         ctas=cuda_build.bind(lib, "rl_admm_ctas_per_sm", [ctypes.c_int] * 5),
         smem=cuda_build.bind(lib, "rl_admm_smem_bytes", [ctypes.c_int] * 4,
                              ctypes.c_longlong))
@@ -523,13 +535,14 @@ def launch_rescue(p: _Params, P, Kinv, A, nvecs, vecs, c_inv, kpad, x, z, y,
                   stats, flags, ws, layout: str) -> None:
     """The rescue launch over the lanes that ``flags[:, 2]`` marks, in the
     main launch's ``layout``; ``kpad``: B4's pad scalars of Kinv, or None
-    (B1)."""
+    (B1). Counts into :data:`rescue_work` while a session is armed."""
     Pt = cuda_build.ptr
     err = _launchers(cuda_build.library())["rescue"](
         p, Pt(P), Pt(Kinv), Pt(A), Pt(nvecs), Pt(vecs), Pt(c_inv),
         ctypes.c_void_p(None if kpad is None else kpad.data_ptr()), Pt(x),
         Pt(z), Pt(y), Pt(stats), Pt(flags), Pt(ws),
-        int(layout == "resident"), P.shape[0], cuda_build.stream_ptr())
+        rescue_work.ptr(P.device), int(layout == "resident"), P.shape[0],
+        cuda_build.stream_ptr())
     cuda_build.check(err)
 
 
@@ -561,6 +574,7 @@ def smem_bytes_on_card(n: int, m: int, layout: Layout) -> int:
         n, m, layout.nnz_cap, int(layout.name == "resident"))
 
 
+@tracing.traced("qp.admm")
 def admm_iterate(P, Kinv, A, q, l, u, rho, D, E, c, x0, z0, y0, *,
                  sigma: float, alpha: float, eps_abs: float, eps_rel: float,
                  max_iter: int, check_every: int, refine_steps: int,

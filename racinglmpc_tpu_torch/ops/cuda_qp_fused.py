@@ -53,13 +53,14 @@ from typing import NamedTuple
 import torch
 
 from racinglmpc_tpu_torch.ops import cuda_build, cuda_qp
+from racinglmpc_tpu_torch.runtime import tracing
 from racinglmpc_tpu_torch.utils.batched import lane_where as _w
 
-launches = cuda_build.LaunchCounter("fused_admm")
+launches = tracing.LaunchCounter("fused_admm")
 # launches at each iteration precision of the ADMM loop
-precision_launches = {p: cuda_build.LaunchCounter(f"fused_admm_{p}")
+precision_launches = {p: tracing.LaunchCounter(f"fused_admm_{p}")
                       for p in cuda_qp.ITER_PRECISIONS}
-streamed = cuda_build.ScenarioCounter("fused_admm_streamed")
+streamed = tracing.ScenarioCounter("fused_admm_streamed")
 MAX_REGS = 128    # registers a thread may take at 512 threads, one CTA an SM
 
 
@@ -211,6 +212,7 @@ def ctas_per_sm_on_card(n: int, m: int) -> int:
     return _launchers(cuda_build.library())["ctas"](n, m)
 
 
+@tracing.traced("qp.admm")
 def admm_iterate_fused(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0, z0,
                        y0, *, sigma: float, alpha: float, eps_abs: float,
                        eps_rel: float, max_iter: int, check_every: int,

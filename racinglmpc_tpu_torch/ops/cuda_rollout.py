@@ -27,10 +27,11 @@ import torch
 from racinglmpc_tpu_torch.models import dynamics
 from racinglmpc_tpu_torch.models.track import Track, TrackTable, track_table
 from racinglmpc_tpu_torch.ops import cuda_build
+from racinglmpc_tpu_torch.runtime import tracing
 from racinglmpc_tpu_torch.utils.config import SimConfig, VehicleParams
 
 MAX_SEG = 16
-launches = cuda_build.LaunchCounter("rollout")
+launches = tracing.LaunchCounter("rollout")
 
 
 class _Params(ctypes.Structure):

@@ -35,6 +35,7 @@ import torch
 from racinglmpc_tpu_torch.models import sysid
 from racinglmpc_tpu_torch.models.track import Track, TrackTable, track_table
 from racinglmpc_tpu_torch.ops import cuda_build
+from racinglmpc_tpu_torch.runtime import tracing
 from racinglmpc_tpu_torch.utils.config import LMPCConfig
 
 MAX_SEG = 16
@@ -43,7 +44,7 @@ MAX_KNN = 7       # picks a lane's list holds; more take the rescan instance
 CHUNK = 32        # rounds the rescan instance records at once
 MAX_REGS = 64     # registers a thread, the kernel's launch bound
 HEADER = 160      # mbarriers, segment table (bytes)
-launches = cuda_build.LaunchCounter("sysid")
+launches = tracing.LaunchCounter("sysid")
 
 
 class _Params(ctypes.Structure):

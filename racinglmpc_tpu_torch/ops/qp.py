@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from racinglmpc_tpu_torch.ops import cuda_qp, cuda_qp_fused, kkt_band
+from racinglmpc_tpu_torch.runtime import tracing
 from racinglmpc_tpu_torch.utils.batched import lane_where as _w
 from racinglmpc_tpu_torch.utils.batched import mv as _mv
 from racinglmpc_tpu_torch.utils.batched import vm as _vm
@@ -95,6 +96,7 @@ def _amax(a):
     return a.abs().amax(-1)
 
 
+@tracing.traced("qp.ruiz")
 def _ruiz_equilibrate(qp: QPData, n_sweeps, init=None):
     """Modified Ruiz equilibration (OSQP scaling), per lane.
 
@@ -122,6 +124,7 @@ def _ruiz_equilibrate(qp: QPData, n_sweeps, init=None):
         total, sweeps = n_sweeps, None
     else:
         total, sweeps = int(n_sweeps.max()), n_sweeps
+    tracing.count("ruiz.lane_sweeps", total * Bsz)   # lanes swept, frozen too
     one = torch.ones((), dtype=dt, device=dev)
     for k in range(total):
         col = torch.maximum(P.abs().amax(1), A.abs().amax(1))
@@ -159,12 +162,20 @@ def _residuals(qp: QPData, x, y, D, E, c):
     return pri, dua, pri_scale, dua_scale
 
 
+@tracing.traced("qp.build_k")
 def _build_K(qp: QPData, rho, sigma: float):
     n = qp.q.shape[1]
     eye = torch.eye(n, dtype=qp.q.dtype, device=qp.q.device)
     return qp.P + sigma * eye + (qp.A.transpose(1, 2) * rho[:, None, :]) @ qp.A
 
 
+# the Newton-Schulz counters of a tracing session, per run of _ns_inverse:
+# passes (one host sync each) and lane-iterations (lanes a pass updates)
+NS_COUNTS = {run: (f"ns.{run}.passes", f"ns.{run}.lane_iters")
+             for run in ("first", "restart", "final")}
+
+
+@tracing.traced("qp.ns")
 def _ns_inverse(K, X0, warm_ok, tol: float, max_iters: int,
                 staged: bool = False):
     """Newton-Schulz inverse X <- X(2I - KX) per lane (reference
@@ -172,7 +183,13 @@ def _ns_inverse(K, X0, warm_ok, tol: float, max_iters: int,
     iteration from the all-ones vector puts the spectral radius of
     I - K X0 below 0.9, else the norm-scaled Jacobi init; a restart pass
     from Jacobi when the first pass failed; an unconditional final
-    squaring, its products in float64 for float32 K. Returns (X, resid)."""
+    squaring, its products in float64 for float32 K. Returns (X, resid).
+
+    While a tracing session is armed it counts (:data:`NS_COUNTS`) the
+    passes and lane-iterations of the first run, the restart run and the
+    final squaring (one pass over every lane), ``ns.lanes``, the lanes
+    inverted, and ``ns.warm_gate_lanes``, the lanes of a batch whose warm
+    gate ran: numbers the host already holds."""
     Bsz, n, _ = K.shape
     dt, dev = K.dtype, K.device
     I = torch.eye(n, dtype=dt, device=dev)
@@ -183,6 +200,7 @@ def _ns_inverse(K, X0, warm_ok, tol: float, max_iters: int,
 
     big = torch.full((Bsz,), 1e5, dtype=dt, device=dev)
     if bool(warm_ok.any()):
+        tracing.count("ns.warm_gate_lanes", Bsz)
         R0 = I - K @ X0
         r0_m = R0.abs().amax((1, 2))
         v = torch.full((Bsz, n), 1.0 / math.sqrt(n), dtype=dt, device=dev)
@@ -198,7 +216,7 @@ def _ns_inverse(K, X0, warm_ok, tol: float, max_iters: int,
     else:
         X_init, r_init = Xj, big
 
-    def run_phase(X, r, level):
+    def run_phase(X, r, level, counts):
         X, r = X.clone(), r.clone()
         it = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
         while True:
@@ -206,6 +224,8 @@ def _ns_inverse(K, X0, warm_ok, tol: float, max_iters: int,
             idx = act.nonzero()[:, 0]
             if idx.numel() == 0:
                 return X, r
+            tracing.count(counts[0])
+            tracing.count(counts[1], idx.numel())
             if idx.numel() == Bsz:      # every lane active: no gathers
                 R = I - K @ X
                 X = X + X @ R
@@ -218,15 +238,17 @@ def _ns_inverse(K, X0, warm_ok, tol: float, max_iters: int,
             r[idx] = R.abs().amax((1, 2))
             it[idx] += 1
 
-    def run(X, r):
+    def run(X, r, counts):
         if staged:
-            X, r = run_phase(X, r, max(0.3, tol))
-            X, r = run_phase(X, r, max(3e-2, tol))
-        return run_phase(X, r, tol)
+            X, r = run_phase(X, r, max(0.3, tol), counts)
+            X, r = run_phase(X, r, max(3e-2, tol), counts)
+        return run_phase(X, r, tol, counts)
 
-    X, resid = run(X_init, r_init)
+    tracing.count("ns.lanes", Bsz)
+    X, resid = run(X_init, r_init, NS_COUNTS["first"])
     bad = ~torch.isfinite(resid) | (resid > 50 * tol)
-    X2, resid2 = run(_w(bad, Xj, X), torch.where(bad, big, resid))
+    X2, resid2 = run(_w(bad, Xj, X), torch.where(bad, big, resid),
+                     NS_COUNTS["restart"])
     # The final unconditional squaring. On float32 K its two products run
     # in float64 and X3 is rounded back once (a mixed-precision refinement
     # step): a float32 R2 = I - K X2 carries the rounding of its n-term
@@ -235,6 +257,8 @@ def _ns_inverse(K, X0, warm_ok, tol: float, max_iters: int,
     # in float64 it lands at ~1e-4, the float32 inverse's own rounding.
     # Float64 K takes its own dtype, unchanged.
     wide = torch.float64 if dt == torch.float32 else dt
+    tracing.count(NS_COUNTS["final"][0])
+    tracing.count(NS_COUNTS["final"][1], Bsz)
     K2, X2w = K.to(wide), X2.to(wide)
     R2 = torch.eye(n, dtype=wide, device=dev) - K2 @ X2w
     r2_m = R2.abs().amax((1, 2)).to(dt)
@@ -392,6 +416,7 @@ def use_kernel(cfg: SolverConfig, qp: QPData) -> bool:
             and (qp.q.is_cuda or cfg.pallas_interpret))
 
 
+@tracing.traced("qp.prologue")
 def admm_inputs(qp: QPData, cfg: SolverConfig, warm=None, fac=None,
                 structure=None):
     """The kernel path's prologue: returns (prologue, Kinv1, ns_resid1),
@@ -461,6 +486,7 @@ def fused_inputs(qp: QPData, cfg: SolverConfig, warm=None,
     return fused_args(_prologue(qp, cfg, warm, fac), cfg)
 
 
+@tracing.traced("qp.solve")
 def solve(qp: QPData, cfg: SolverConfig = SolverConfig(), warm=None,
           fac: Optional[FactorCache] = None, structure=None) -> QPSolution:
     """Solve a batch of QPs. ``warm``: (x, y) in original coordinates;
@@ -590,6 +616,7 @@ def solve(qp: QPData, cfg: SolverConfig = SolverConfig(), warm=None,
                    **common)
 
 
+@tracing.traced("qp.finish")
 def _finish(orig: QPData, cfg: SolverConfig, *, x_u, y_u, solved, iters,
             kinv, ns_resid, ns_tol, is_eq, D, E, c, age, pre=None,
             keep_kinv=True) -> QPSolution:

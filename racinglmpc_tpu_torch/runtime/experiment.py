@@ -62,6 +62,7 @@ from racinglmpc_tpu_torch.models.track import Track, make_track, track_table
 from racinglmpc_tpu_torch.parallel import mesh as mesh_mod
 from racinglmpc_tpu_torch.runtime import checkpoint
 from racinglmpc_tpu_torch.runtime import loop as loop_mod
+from racinglmpc_tpu_torch.runtime import tracing
 from racinglmpc_tpu_torch.utils.batched import tree_map
 from racinglmpc_tpu_torch.utils.config import (
     LMPCConfig, MPCConfig, SimConfig, SolverConfig, VehicleParams)
@@ -156,6 +157,7 @@ def run_lap_chunked(runner, ctrl_state, plant: PlantState, max_steps: int,
     (StageResult padded to ``pad_to`` steps, ctrl_state); the chunks'
     ``collected`` archives are joined and padded alike."""
     B = plant.x.shape[0]
+    tracing.new_episode()
     done = torch.zeros((B,), dtype=torch.bool, device=plant.x.device)
     parts = []
     step0 = 0
@@ -164,8 +166,10 @@ def run_lap_chunked(runner, ctrl_state, plant: PlantState, max_steps: int,
         ctrl_state, plant, done = res.ctrl_state, res.plant_final, res.done
         parts.append(res)
         step0 += chunk
-        if bool(done.all() if mesh is None
-                else mesh_mod.all_ranks(done, mesh)):
+        with tracing.span("lap.exit"):
+            exit_ = bool(done.all() if mesh is None
+                         else mesh_mod.all_ranks(done, mesh))
+        if exit_:
             break
 
     def pad(a):
@@ -179,12 +183,13 @@ def run_lap_chunked(runner, ctrl_state, plant: PlantState, max_steps: int,
         return tree_map(lambda *ts: pad(torch.cat(ts, 1)),
                         *[getattr(r, name) for r in parts])
 
-    mask = cat_pad("mask")
-    return StageResult(x=cat_pad("x"), u=cat_pad("u"),
-                       x_glob=cat_pad("x_glob"), mask=mask,
-                       steps=mask.sum(1).to(torch.int32),
-                       plant_final=plant,
-                       collected=cat_pad("collected")), ctrl_state
+    with tracing.span("lap.freeze"):
+        mask = cat_pad("mask")
+        return StageResult(x=cat_pad("x"), u=cat_pad("u"),
+                           x_glob=cat_pad("x_glob"), mask=mask,
+                           steps=mask.sum(1).to(torch.int32),
+                           plant_final=plant,
+                           collected=cat_pad("collected")), ctrl_state
 
 
 def run_experiment(cfg: ExperimentConfig = ExperimentConfig(), *,

@@ -23,6 +23,7 @@ from racinglmpc_tpu_torch.models import dynamics
 from racinglmpc_tpu_torch.models.dynamics import PlantState
 from racinglmpc_tpu_torch.models.track import Track, TrackTable, track_table
 from racinglmpc_tpu_torch.ops import cuda_rollout
+from racinglmpc_tpu_torch.runtime import tracing
 from racinglmpc_tpu_torch.utils.config import SimConfig, VehicleParams
 from racinglmpc_tpu_torch.utils.batched import bwhere, tree_map
 
@@ -75,6 +76,7 @@ def use_kernel_rollout(sim_cfg: SimConfig, vp: VehicleParams) -> bool:
     return sim_cfg.use_pallas_rollout and scalar_vp(vp)
 
 
+@tracing.traced("lap.plant")
 def plant_step(plant: PlantState, u, vp: VehicleParams, trk: Track,
                sim_cfg: SimConfig, draws, table: TrackTable) -> PlantState:
     """One period for the batch: the rollout kernel where
@@ -109,27 +111,32 @@ def run_lap(controller_step, ctrl_state, plant: PlantState, *, trk: Track,
             if done0 is None else done0)
     xs, us, xgs, masks, extras = [], [], [], [], []
     for t in range(step0, step0 + max_steps):
-        c_draw, p_draw = noise(t) if noise is not None else (None, None)
+        tracing.at_step(t)
+        with tracing.span("lap.noise"):
+            c_draw, p_draw = noise(t) if noise is not None else (None, None)
         new_ctrl, u = controller_step(ctrl_state, plant.x, c_draw)
         new_plant = plant_step(plant, u, vp, trk, sim_cfg, p_draw, table)
-        if collect_fn is not None:
-            extras.append(collect_fn(new_ctrl))
-        xs.append(plant.x)
-        us.append(u)
-        xgs.append(plant.x_glob)
-        masks.append(~done)
-        ctrl_state = bwhere(done, ctrl_state, new_ctrl)
-        plant = bwhere(done, plant, new_plant)
-        if not multi_lap:
-            done = done | (new_plant.x[:, 4] > L)
+        with tracing.span("lap.freeze"):
+            if collect_fn is not None:
+                extras.append(collect_fn(new_ctrl))
+            xs.append(plant.x)
+            us.append(u)
+            xgs.append(plant.x_glob)
+            masks.append(~done)
+            ctrl_state = bwhere(done, ctrl_state, new_ctrl)
+            plant = bwhere(done, plant, new_plant)
+            if not multi_lap:
+                done = done | (new_plant.x[:, 4] > L)
 
-    mask = torch.stack(masks, 1)
-    shift = torch.zeros_like(plant.x)
-    shift[:, 4] = L
-    return LapResult(
-        x=torch.stack(xs, 1), u=torch.stack(us, 1), x_glob=torch.stack(xgs, 1),
-        mask=mask, steps=mask.sum(1).to(torch.int32),
-        x_final=PlantState(x=plant.x - shift, x_glob=plant.x_glob),
-        ctrl_state=ctrl_state, plant_final=plant, done=done,
-        collected=(tree_map(lambda *ts: torch.stack(ts, 1), *extras)
-                   if extras else None))
+    with tracing.span("lap.freeze"):
+        mask = torch.stack(masks, 1)
+        shift = torch.zeros_like(plant.x)
+        shift[:, 4] = L
+        return LapResult(
+            x=torch.stack(xs, 1), u=torch.stack(us, 1),
+            x_glob=torch.stack(xgs, 1), mask=mask,
+            steps=mask.sum(1).to(torch.int32),
+            x_final=PlantState(x=plant.x - shift, x_glob=plant.x_glob),
+            ctrl_state=ctrl_state, plant_final=plant, done=done,
+            collected=(tree_map(lambda *ts: torch.stack(ts, 1), *extras)
+                       if extras else None))

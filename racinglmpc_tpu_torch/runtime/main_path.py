@@ -8,9 +8,10 @@ its own plant noise. Solver ``SolverConfig.throughput()``,
 ``LMPCConfig(max_laps=12, max_pts=1024, model_pts=512)``, N = 14, with the
 three CUDA kernels engaged on a CUDA device.
 
-On a card, ``python -m racinglmpc_tpu_torch.runtime.main_path`` profiles
-a few steps (``torch.profiler``: kernel time by name, device busy share);
-``python -m racinglmpc_tpu_torch.runtime.bench`` times it.
+On a card, ``python -m racinglmpc_tpu_torch.runtime.main_path [--batch B]
+[--steps S]`` profiles a few steps with the tracer armed
+(:func:`profile`); ``python -m racinglmpc_tpu_torch.runtime.bench`` times
+it.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from racinglmpc_tpu_torch.controllers import lmpc as lmpc_mod
 from racinglmpc_tpu_torch.models.track import Track, TrackTable, make_track
 from racinglmpc_tpu_torch.models.track import track_table
 from racinglmpc_tpu_torch.runtime import experiment as exp
-from racinglmpc_tpu_torch.runtime import loop
+from racinglmpc_tpu_torch.runtime import loop, tracing
 from racinglmpc_tpu_torch.utils.config import (LMPCConfig, SimConfig,
                                                SolverConfig, VehicleParams)
 
@@ -97,7 +98,8 @@ def run_chunk(mp: MainPath, state, plant, steps: int) -> Chunk:
     iters = []
     rej = torch.zeros((), dtype=torch.int64, device=plant.x.device)
     uns = torch.zeros_like(rej)
-    for _ in range(steps):
+    for t in range(steps):
+        tracing.at_step(t)
         state, u = mp.ctrl.step(state, plant.x)
         draws = torch.randn((mp.batch, 3), generator=mp.gen,
                             device=plant.x.device)
@@ -109,27 +111,38 @@ def run_chunk(mp: MainPath, state, plant, steps: int) -> Chunk:
     return Chunk(state, plant, torch.stack(iters), rej, uns)
 
 
-def profile(batch: int, steps: int) -> None:
+def profile(batch: int, steps: int) -> dict:
+    """``steps`` steps after a 20-step warm-up, inside a tracing session
+    and ``torch.profiler`` (the device's activity: kernels, copies, CUDA
+    runtime calls). Prints the device busy share (the union of the device
+    intervals over the profiled wall), the per-span table
+    (:func:`tracing.table`: per step, each stage's host self time, the
+    device time of the kernels it launched, the device idle time while it
+    was the innermost span, its launches and syncs) and the tracer's
+    counters (Newton-Schulz passes and lane-iterations, B1's rescue);
+    returns the overlay and the counters."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
     mp, state, plant, _ = setup(batch)
     state, plant = run_chunk(mp, state, plant, 20)[:2]   # warm-up
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        out = run_chunk(mp, state, plant, steps)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    events = prof.key_averages()
-    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"{steps} steps at batch {batch}: wall {wall * 1e3:.1f} ms, "
-          f"device busy {dev_us / 1e3:.1f} ms "
-          f"({100 * dev_us / 1e6 / wall:.1f}% of wall), "
+    with tracing.session() as rec:
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.time_ns()
+            out = run_chunk(mp, state, plant, steps)
+            torch.cuda.synchronize()
+            t1 = time.time_ns()
+    ov = tracing.overlay(rec.spans, *tracing.profiler_events(prof),
+                         window=(t0, t1), steps=steps)
+    print(f"{steps} steps at batch {batch}: wall {(t1 - t0) * 1e-6:.1f} ms, "
+          f"device busy {ov['busy_ms']:.1f} ms "
+          f"({100 * ov['busy_ms'] / ov['window_ms']:.1f}% of wall), "
           f"ADMM iters mean {float(out.iters.float().mean()):.2f}")
-    print(events.table(sort_by="self_device_time_total", row_limit=25))
+    print(tracing.table(ov))
+    print("counters: " + ", ".join(f"{k} {v}" for k, v in
+                                   sorted(rec.counts.items())))
+    return {"overlay": ov, "counts": dict(rec.counts)}
 
 
 if __name__ == "__main__":

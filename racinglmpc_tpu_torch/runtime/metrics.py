@@ -7,15 +7,11 @@
 - :func:`latency_report`: step-latency percentiles against the 100 ms
   (10 Hz) control budget.
 - :func:`time_steps`: wall seconds per call, synchronizing the card.
-- :func:`profile`: ``torch.profiler`` around a block, with the trace
-  written as Chrome JSON into ``logdir``.
 """
 from __future__ import annotations
 
-import contextlib
-import os
 import time
-from typing import Iterator, NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -74,21 +70,3 @@ def time_steps(fn, n: int, *args, **kwargs) -> np.ndarray:
         sync()
         out.append(time.perf_counter() - t0)
     return np.asarray(out)
-
-
-@contextlib.contextmanager
-def profile(logdir: Optional[str]) -> Iterator[Optional[object]]:
-    """``with profile(dir) as prof:`` traces the block with
-    ``torch.profiler`` (CPU, and CUDA when a card is present), writes
-    ``dir/trace.json`` and yields the profiler (``prof.key_averages()``);
-    a no-op yielding None when ``logdir`` is None."""
-    if logdir is None:
-        yield None
-        return
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -27,7 +27,7 @@ from racinglmpc_tpu_torch.models.track import make_track
 from racinglmpc_tpu_torch.ops import cuda_build, cuda_qp, cuda_qp_fused
 from racinglmpc_tpu_torch.ops import qp as qp_mod
 from racinglmpc_tpu_torch.runtime import experiment as exp
-from racinglmpc_tpu_torch.runtime import main_path, stage_path
+from racinglmpc_tpu_torch.runtime import main_path, stage_path, tracing
 from racinglmpc_tpu_torch.utils.config import LMPCConfig, SolverConfig
 
 torch.set_num_threads(1)
@@ -99,7 +99,7 @@ def test_phase_clock_build_is_a_library_of_its_own():
 
 
 def test_scenario_counter_sums_on_its_device():
-    c = cuda_build.ScenarioCounter("streamed")
+    c = tracing.ScenarioCounter("streamed")
     t = c.tensor("cpu")
     assert c.tensor("cpu") is t and t.dtype == torch.int32
     t += 3

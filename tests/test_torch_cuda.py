@@ -21,7 +21,8 @@ from racinglmpc_tpu_torch.ops import (cuda_qp, cuda_qp_fused, cuda_rollout,
                                       cuda_sysid)
 from racinglmpc_tpu_torch.ops import qp as qp_mod
 from racinglmpc_tpu_torch.runtime import experiment as exp
-from racinglmpc_tpu_torch.runtime import loop, main_path, stage_path
+from racinglmpc_tpu_torch.runtime import (loop, main_path, rescue_replay,
+                                          stage_path, tracing)
 from racinglmpc_tpu_torch.utils.config import SolverConfig, VehicleParams
 from racinglmpc_tpu_torch.utils.qp_cases import random_qps
 
@@ -248,6 +249,32 @@ def test_admm_matches_plain(setup):
 
 ADMM_NAMES = ("P", "Kinv", "A", "q", "l", "u", "rho", "D", "E", "c", "x0",
               "z0", "y0")
+
+
+@pytest.mark.parametrize("layout", ["resident", "stream"])
+def test_rescue_counter_counts_the_rescued_lanes(setup, layout):
+    """B1's forced rescue on the main path's FTOCPs: with the rescue's
+    work counter armed the kernel gives the same bits as with its pointer
+    null, counts every lane ``flags[:, 2]`` marks, and as many as the
+    plain version counts."""
+    cfg, trk, st, x0 = setup
+    ctrl = lmpc_mod.make_lmpc(cfg.lmpc, trk, cfg.solver, 0.1)
+    qp = ctrl.build_qp(st, x0)[0]
+    args, kw = rescue_replay.admm_args(
+        qp, rescue_replay.forced_rescue(cfg.solver), None, None)
+    off = cuda_qp.admm_iterate(*args, **kw, layout=layout)
+    with tracing.session() as rec:
+        on = cuda_qp.admm_iterate(*args, **kw, layout=layout)
+    with tracing.session() as rec_plain:
+        cuda_qp.admm_iterate_plain(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(off, on))
+    lanes = int(off[6].sum())
+    c = rec.counts
+    assert lanes == B and c["admm.rescue.lanes"] == lanes
+    assert rec_plain.counts["admm.rescue.lanes"] == lanes
+    assert lanes <= c["admm.rescue.ns_iters"] <= 2 * lanes * kw[
+        "ns_max_iters"]
+    assert c["admm.rescue.warm_tests"] == 0
 
 
 @pytest.mark.parametrize("prec", ["bf16x3", "default"])
