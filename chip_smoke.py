@@ -1643,6 +1643,64 @@ def floor_text(r):
             f"{[float(f'{v:.3e}') for v in r.tolist()]}")
 
 
+def ns_kernel(torch, qp_mod, cuda_ns, kernel_bench, qp, warm, fac, solver,
+              launches):
+    """Phase 3: the Newton-Schulz kernel on the batch's own FTOCPs against
+    its plain version (warm decisions, iteration counts, the inverse's
+    float64 residual, same bits twice), its time beside the plain
+    version's, its bound (its lane-iterations' float32 products and the
+    float64 squaring at 67 TFLOP/s each, the data sheet's float32 and
+    FP64 tensor-core rates, as ``lmpc_bench/roofline/prologue.py`` prices
+    them) and cuBLAS's yardstick: the same products as batched GEMMs,
+    (2 lane-iterations + 1 warm gate) a lane of the float32 one and two
+    float64 ones."""
+    pro = qp_mod._prologue(qp, solver, warm, fac)
+    K = qp_mod._build_K(pro.qp_s, pro.rho0, solver.sigma)
+    args = (K, pro.kinv0, pro.warm_ok, pro.ns_tol, solver.ns_max_iters,
+            solver.ns_staged_precision)
+    sk, sp = {}, {}
+    Xk, rk = cuda_ns.ns_inverse(*args, sk)
+    Xp, rp = cuda_ns.ns_inverse_plain(*args, sp)
+    tk, tp = true_residual(torch, K, Xk), true_residual(torch, K, Xp)
+    eq = {k: round(float((sk[k] == sp[k]).float().mean()), 4)
+          for k in cuda_ns.STATS}
+    ratio = float((tk / tp).max())
+    B, n = K.shape[0], K.shape[-1]
+    its = (sk["first"] + sk["restart"]).float()
+    print(f"[chip_smoke] Newton-Schulz kernel vs plain at batch {B}, n = {n}:"
+          f" lanes equal {eq}; lane-iterations mean kernel "
+          f"{float(its.mean()):.2f} max {int(its.max())}, plain "
+          f"{float((sp['first'] + sp['restart']).float().mean()):.2f}; "
+          f"float64 max|I - K X| kernel max {float(tk.max()):.3e} plain "
+          f"{float(tp.max()):.3e}, per-lane ratio max {ratio:.3f}")
+    check("ns_vs_plain", eq["warm"] == 1.0 and ratio <= 2.0,
+          "(warm decisions equal on every lane, max|I - K X| at most twice "
+          "the plain version's)")
+    again = cuda_ns.ns_inverse(*args)
+    check("ns_same_bits_twice",
+          torch.equal(again[0], Xk) and torch.equal(again[1], rk))
+    ms = kernel_bench.event_ms(lambda: cuda_ns.ns_inverse(*args))
+    dms = kernel_bench.device_ms(lambda: cuda_ns.ns_inverse(*args),
+                                 ("ns_inverse",))
+    pms = time_ms(torch, lambda: cuda_ns.ns_inverse_plain(*args))
+    gate = int(pro.warm_ok.sum())
+    ops = (float(its.sum()) * (4 * n ** 3 + 3 * n * n)
+           + gate * (2 * n ** 3 + 2 * n * n + 12 * (2 * n * n + 3 * n))
+           + B * (4 * n ** 3 + 3 * n * n))
+    bms, by = bound_ms(nbytes(K, pro.kinv0, Xk, rk), ops)
+    K64, X64 = K.double(), Xk.double()
+    lib = ((2 * float(its.mean()) + gate / B) * time_ms(
+        torch, lambda: torch.bmm(K, Xk))
+        + 2 * time_ms(torch, lambda: torch.bmm(K64, X64)))
+    return dict(
+        name="ns", route="cuda", source="racinglmpc_tpu_torch/csrc/cuda_ns.cu",
+        replaces=None, launches=launches,
+        max_abs_err=float((Xk - Xp)[torch.isfinite(rp)].abs().max()), ms=ms,
+        device_ms=dms, plain_ms=pms, bound_ms=bms, bound_by=by,
+        library_ms=lib, residual_ratio=ratio,
+        lane_iters_mean=float(its.mean()))
+
+
 def b1_inverse_floor(torch, qp_mod, ctrl, chunk, solver):
     """The float64 true residual of the inverse the kernel path hands B1 at
     the step after ``chunk`` (``admm_inputs``, as ``qp.solve`` makes it),
@@ -1855,8 +1913,9 @@ def main() -> int:
         return 2
 
     from racinglmpc_tpu_torch.models import sysid
-    from racinglmpc_tpu_torch.ops import (cuda_build, cuda_qp, cuda_qp_fused,
-                                          cuda_rollout, cuda_sysid)
+    from racinglmpc_tpu_torch.ops import (cuda_build, cuda_ns, cuda_qp,
+                                          cuda_qp_fused, cuda_rollout,
+                                          cuda_sysid)
     from racinglmpc_tpu_torch.ops import qp as qp_mod
     from racinglmpc_tpu_torch.runtime import bench
     from racinglmpc_tpu_torch.runtime import experiment as exp
@@ -1917,7 +1976,7 @@ def main() -> int:
 
     # the bench's headline: a warm-up chunk, then 3 timed chunks, each
     # holding B1-B3 to one launch a step and no scenario streamed
-    for c in counters + layouts:
+    for c in counters + layouts + (cuda_ns.launches,):
         c.reset()
     try:
         head = bench.time_chunks(
@@ -1975,6 +2034,10 @@ def main() -> int:
     for name, n in launches.items():
         if name != "fused_admm":      # B4 is off on the main path
             check(f"main_path_launched_{name}", n > 0, f"({n})")
+    ns_steps = STEPS * (len(head.chunks) + 1)
+    check("main_path_ns_kernel_once_a_step",
+          cuda_ns.launches.n == ns_steps,
+          f"({cuda_ns.launches.n} launches in {ns_steps} steps)")
     check("main_path_admm_resident_no_scenario_streamed",
           lay["admm_resident"] > 0 and lay["admm_stream"] == 0
           and lay["admm_streamed"] == 0, f"({lay})")
@@ -2215,6 +2278,8 @@ def main() -> int:
         launches=launches["admm"], max_abs_err=max(err_b1.values()), ms=ms,
         device_ms=dms, plain_ms=pms, bound_ms=bms, bound_by=by,
         library_ms=None, resident_ms=ms, stream_ms=stream_ms))
+    kernels.append(ns_kernel(torch, qp_mod, cuda_ns, kernel_bench, qp, warm,
+                             state.fac, cfg.solver, launches=ns_steps))
     variants = b1_precisions(torch, qp_mod, cuda_qp, cuda_qp_fused,
                              kernel_bench, admm_args, cfg.solver, state.fac,
                              rescue_cfg, cfg.solver.check_every)

@@ -17,9 +17,12 @@ Stages (reference ``qp.py`` line ranges in brackets):
   [117-167, 419-443];
 - K = P + sigma I + A' rho A and its Newton-Schulz inverse with the
   12-step power-iteration warm gate and the unconditional final squaring
-  [185-300]; these are plain float32 GEMMs (``torch.matmul``, TF32 off),
-  as the reference leaves them to XLA, but for the final squaring's two
-  products, which run in float64 (see ``_ns_inverse``). With an FTOCP
+  [185-300]: on a CUDA float32 K (n <= 200) one hand-written kernel in
+  which each lane runs its whole inverse and exits on the device
+  (``ops/cuda_ns.py``: float32 FMAs, the final squaring's two products in
+  float64); elsewhere its plain version, batched GEMMs (``torch.matmul``,
+  TF32 off) driven by a host loop, as the reference leaves them to XLA's
+  ``while_loop``. With an FTOCP
   ``structure`` and ``kkt_structured`` the inverse starts from the exact
   block-tridiagonal build (``ops/kkt_band.structured_kinv``), squared
   once, and the Newton-Schulz guard verifies it [544-567];
@@ -34,12 +37,11 @@ Stages (reference ``qp.py`` line ranges in brackets):
 """
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Optional
 
 import torch
 
-from racinglmpc_tpu_torch.ops import cuda_qp, cuda_qp_fused, kkt_band
+from racinglmpc_tpu_torch.ops import cuda_ns, cuda_qp, cuda_qp_fused, kkt_band
 from racinglmpc_tpu_torch.runtime import tracing
 from racinglmpc_tpu_torch.utils.batched import lane_where as _w
 from racinglmpc_tpu_torch.utils.batched import mv as _mv
@@ -169,102 +171,14 @@ def _build_K(qp: QPData, rho, sigma: float):
     return qp.P + sigma * eye + (qp.A.transpose(1, 2) * rho[:, None, :]) @ qp.A
 
 
-# the Newton-Schulz counters of a tracing session, per run of _ns_inverse:
-# passes (one host sync each) and lane-iterations (lanes a pass updates)
-NS_COUNTS = {run: (f"ns.{run}.passes", f"ns.{run}.lane_iters")
-             for run in ("first", "restart", "final")}
-
-
 @tracing.traced("qp.ns")
 def _ns_inverse(K, X0, warm_ok, tol: float, max_iters: int,
                 staged: bool = False):
-    """Newton-Schulz inverse X <- X(2I - KX) per lane (reference
-    ``_ns_inverse``, same gates): warm start X0 only where a 12-step power
-    iteration from the all-ones vector puts the spectral radius of
-    I - K X0 below 0.9, else the norm-scaled Jacobi init; a restart pass
-    from Jacobi when the first pass failed; an unconditional final
-    squaring, its products in float64 for float32 K. Returns (X, resid).
-
-    While a tracing session is armed it counts (:data:`NS_COUNTS`) the
-    passes and lane-iterations of the first run, the restart run and the
-    final squaring (one pass over every lane), ``ns.lanes``, the lanes
-    inverted, and ``ns.warm_gate_lanes``, the lanes of a batch whose warm
-    gate ran: numbers the host already holds."""
-    Bsz, n, _ = K.shape
-    dt, dev = K.dtype, K.device
-    I = torch.eye(n, dtype=dt, device=dev)
-    d = 1.0 / torch.clamp(torch.diagonal(K, dim1=1, dim2=2), min=1e-12)
-    KXj = K * d[:, None, :]
-    cj = torch.sqrt(((I - KXj) ** 2).sum((1, 2)))
-    Xj = (I * d[:, None, :]) / torch.clamp(cj, min=1.0)[:, None, None]
-
-    big = torch.full((Bsz,), 1e5, dtype=dt, device=dev)
-    if bool(warm_ok.any()):
-        tracing.count("ns.warm_gate_lanes", Bsz)
-        R0 = I - K @ X0
-        r0_m = R0.abs().amax((1, 2))
-        v = torch.full((Bsz, n), 1.0 / math.sqrt(n), dtype=dt, device=dev)
-        nrm = torch.zeros((Bsz,), dtype=dt, device=dev)
-        for _ in range(12):
-            w = _mv(R0, v)
-            nrm = torch.sqrt((w * w).sum(-1))
-            v = w / torch.clamp(nrm, min=1e-30)[:, None]
-        use_warm = (warm_ok & torch.isfinite(nrm) & (nrm < 0.9)
-                    & torch.isfinite(r0_m))
-        X_init = _w(use_warm, X0, Xj)
-        r_init = torch.where(use_warm, r0_m, big)
-    else:
-        X_init, r_init = Xj, big
-
-    def run_phase(X, r, level, counts):
-        X, r = X.clone(), r.clone()
-        it = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
-        while True:
-            act = (r > level) & (r < 1e6) & (it < max_iters)
-            idx = act.nonzero()[:, 0]
-            if idx.numel() == 0:
-                return X, r
-            tracing.count(counts[0])
-            tracing.count(counts[1], idx.numel())
-            if idx.numel() == Bsz:      # every lane active: no gathers
-                R = I - K @ X
-                X = X + X @ R
-                r = R.abs().amax((1, 2))
-                it += 1
-                continue
-            Xa = X[idx]
-            R = I - K[idx] @ Xa
-            X[idx] = Xa + Xa @ R
-            r[idx] = R.abs().amax((1, 2))
-            it[idx] += 1
-
-    def run(X, r, counts):
-        if staged:
-            X, r = run_phase(X, r, max(0.3, tol), counts)
-            X, r = run_phase(X, r, max(3e-2, tol), counts)
-        return run_phase(X, r, tol, counts)
-
-    tracing.count("ns.lanes", Bsz)
-    X, resid = run(X_init, r_init, NS_COUNTS["first"])
-    bad = ~torch.isfinite(resid) | (resid > 50 * tol)
-    X2, resid2 = run(_w(bad, Xj, X), torch.where(bad, big, resid),
-                     NS_COUNTS["restart"])
-    # The final unconditional squaring. On float32 K its two products run
-    # in float64 and X3 is rounded back once (a mixed-precision refinement
-    # step): a float32 R2 = I - K X2 carries the rounding of its n-term
-    # sums, which holds the inverse at max|I - K X3| ~5e-4 on the main
-    # path's FTOCPs, where B1's iteration tail grows with that residual;
-    # in float64 it lands at ~1e-4, the float32 inverse's own rounding.
-    # Float64 K takes its own dtype, unchanged.
-    wide = torch.float64 if dt == torch.float32 else dt
-    tracing.count(NS_COUNTS["final"][0])
-    tracing.count(NS_COUNTS["final"][1], Bsz)
-    K2, X2w = K.to(wide), X2.to(wide)
-    R2 = torch.eye(n, dtype=wide, device=dev) - K2 @ X2w
-    r2_m = R2.abs().amax((1, 2)).to(dt)
-    ok2 = torch.isfinite(r2_m) & (r2_m < 1.0)
-    X3 = _w(ok2, (X2w + X2w @ R2).to(dt), X2)
-    return X3, torch.where(ok2, torch.minimum(resid2, r2_m), resid2)
+    """Newton-Schulz inverse per lane with the reference's gates (reference
+    ``_ns_inverse``): ``ops/cuda_ns.ns_inverse``, the kernel on a CUDA
+    float32 K within its limit, else the plain version. Returns
+    (X, resid)."""
+    return cuda_ns.ns_inverse(K, X0, warm_ok, tol, max_iters, staged)
 
 
 def _make_admm_iter(qp: QPData, Kinv, rho, sigma: float, alpha: float,

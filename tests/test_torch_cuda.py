@@ -17,7 +17,8 @@ import chip_smoke
 from racinglmpc_tpu_torch.controllers import lmpc as lmpc_mod
 from racinglmpc_tpu_torch.models import dynamics, sysid
 from racinglmpc_tpu_torch.models.track import make_track, track_table
-from racinglmpc_tpu_torch.ops import (cuda_qp, cuda_qp_fused, cuda_rollout,
+from racinglmpc_tpu_torch.ops import (cuda_build, cuda_ns, cuda_qp,
+                                      cuda_qp_fused, cuda_rollout,
                                       cuda_sysid)
 from racinglmpc_tpu_torch.ops import qp as qp_mod
 from racinglmpc_tpu_torch.runtime import experiment as exp
@@ -541,6 +542,186 @@ def test_bench_headline_launches_each_kernel_once_a_step(setup):
     assert out.counts == [{"admm": 5, "admm_layouts": 5, "sysid": 5,
                            "rollout": 5, "admm_streamed": 0}] * 2
     assert out.solves_per_s > 0 and out.iters.shape == (2 * 5 * B,)
+
+
+# ---- the Newton-Schulz kernel (ops/cuda_ns.py) ---------------------------
+
+NS_B = 256
+
+
+@pytest.fixture(scope="module")
+def ns_inputs():
+    """The inverse's inputs on the main path at batch 256 (n = 200), step 21
+    after 20 steps on the plain inverse; lanes 0-7 warm from their float64
+    inverse, lanes 8-15 from one perturbed to I - K X0 ~ 1e-2, a NaN entry
+    in lane 20's K and an infinite one in lane 21's: (K, X0, warm_ok, tol,
+    max_iters)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    mp, st, plant, _ = main_path.setup(NS_B, device="cuda")
+    seen = []
+    real = cuda_ns.ns_inverse
+
+    def capture(K, X0, warm_ok, tol, max_iters, staged=False, stats=None):
+        seen[:] = [(K.clone(), X0.clone(), warm_ok.clone(), tol, max_iters)]
+        return cuda_ns.ns_inverse_plain(K, X0, warm_ok, tol, max_iters,
+                                        staged, stats)
+
+    cuda_ns.ns_inverse = capture
+    try:
+        state, plant = main_path.run_chunk(mp, st, plant, 20)[:2]
+        mp.ctrl.step(state, plant.x)
+    finally:
+        cuda_ns.ns_inverse = real
+    K, X0, warm, tol, max_iters = seen[0]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    inv = torch.linalg.inv(K[:16].double())
+    X0[:8] = inv[:8].float()
+    n = K.shape[-1]
+    E = 1e-2 / n ** 0.5 * torch.randn((8, n, n), generator=g, device="cuda",
+                                      dtype=torch.float64)
+    X0[8:16] = (inv[8:16] @ (torch.eye(n, device="cuda",
+                                       dtype=torch.float64) + E)).float()
+    warm[:16] = True
+    K[20, 3, 5] = float("nan")
+    K[21, 7, 7] = float("inf")
+    return K, X0, warm, tol, max_iters
+
+
+def _true_residual(K, X):
+    I = torch.eye(K.shape[-1], dtype=torch.float64, device=K.device)
+    return (I - K.double() @ X.double()).abs().amax((1, 2))
+
+
+def _flip(t):
+    return t.flip(-1).flip(-2)
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("max_iters", [None, 10])
+def test_ns_kernel_matches_plain_on_main_path_ftocps(ns_inputs, staged,
+                                                     max_iters):
+    """The kernel against the plain version on the main path's FTOCPs:
+    warm and cold lanes, two non-finite ones, the runs staged or not, and
+    at 10 iterations a run, where lanes hit the budget and restart. The
+    warm decisions are equal on every lane. Iteration counts near the
+    float32 floor (max|I - K X| ~ tol) move with any change of summation
+    order: the plain version on the same FTOCPs with the k order of every
+    sum reversed (K and X0 flipped, the same mathematics) is the control.
+    The kernel's counts equal the plain version's on 99% of lanes or on as
+    many as the control's do, and lie more than 1 apart on no more lanes
+    than the control's (or 1%); the residual reaches the tolerance wherever
+    the plain one does but on no more lanes than the control misses; per
+    lane, max|I - K X| is at most twice the plain version's."""
+    K, X0, warm, tol, mi = ns_inputs
+    mi = max_iters or mi
+    sp, sk, sc = {}, {}, {}
+    Xp, rp = cuda_ns.ns_inverse_plain(K, X0, warm, tol, mi, staged, sp)
+    Xk, rk = cuda_ns.ns_inverse(K, X0, warm, tol, mi, staged, sk)
+    Xc, rc = cuda_ns.ns_inverse_plain(_flip(K), _flip(X0), warm, tol, mi,
+                                      staged, sc)
+    Xc = _flip(Xc)
+    torch.cuda.synchronize()
+    assert torch.equal(sk["warm"], sp["warm"]) and bool(sp["warm"][:16].all())
+    fin = torch.isfinite(rp)
+    assert not bool(fin[20]) and not bool(fin[21]) and int(fin.sum()) > 200
+    assert torch.equal(torch.isfinite(rk), fin)
+    assert torch.equal(torch.isfinite(Xk).all(-1).all(-1),
+                       torch.isfinite(Xp).all(-1).all(-1))
+    for run in ("first", "restart"):
+        eq_k = float((sk[run] == sp[run]).float().mean())
+        eq_c = float((sc[run] == sp[run]).float().mean())
+        off_k = int(((sk[run] - sp[run]).abs() > 1).sum())
+        off_c = int(((sc[run] - sp[run]).abs() > 1).sum())
+        assert eq_k >= min(0.99, eq_c), (run, eq_k, eq_c)
+        assert off_k <= max(off_c, NS_B // 100), (run, off_k, off_c)
+    if max_iters:    # lanes at the budget (a run's sum over its levels
+        # when staged) restart from Jacobi
+        assert bool(sk["restarted"].any())
+        assert staged or bool((sk["first"] == mi).any())
+    lost_k = int(((rp <= tol) & ~(rk <= tol)).sum())
+    lost_c = int(((rp <= tol) & ~(rc <= tol)).sum())
+    assert lost_k <= lost_c, (lost_k, lost_c)
+    tk, tp = _true_residual(K[fin], Xk[fin]), _true_residual(K[fin], Xp[fin])
+    assert bool((tk <= 2 * tp).all()), float((tk / tp).max())
+
+
+@pytest.mark.parametrize("n", [7, 41, 146, 200])
+def test_ns_kernel_equal_counts_on_well_conditioned_spd(n):
+    """Each padded size of the kernel (40 to 200) on SPD matrices of
+    condition ~1e2, half the lanes warm from a perturbed inverse: far from
+    the float32 floor every lane takes the plain version's warm decision
+    and iteration counts, and the inverses agree to float32 rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(n)
+    Bn = 64
+    M = torch.randn((Bn, n, n), generator=g, device="cuda",
+                    dtype=torch.float64)
+    Q = torch.linalg.qr(M)[0]
+    ev = torch.logspace(0, 2, n, device="cuda", dtype=torch.float64)
+    K64 = Q @ torch.diag_embed(ev.expand(Bn, n)) @ Q.transpose(1, 2)
+    X0 = torch.linalg.inv(K64) * (1 + 1e-3 * torch.randn(
+        (Bn, n, n), generator=g, device="cuda", dtype=torch.float64))
+    K, X0 = K64.float().contiguous(), X0.float().contiguous()
+    warm = torch.arange(Bn, device="cuda") % 2 == 0
+    sp, sk = {}, {}
+    Xp, rp = cuda_ns.ns_inverse_plain(K, X0, warm, 1e-3, 40, False, sp)
+    Xk, rk = cuda_ns.ns_inverse(K, X0, warm, 1e-3, 40, False, sk)
+    for k in cuda_ns.STATS:
+        assert torch.equal(sk[k], sp[k].to(sk[k].dtype)), k
+    assert bool(sk["warm"].any()) and bool((rk <= 1e-3).all())
+    tk, tp = _true_residual(K, Xk), _true_residual(K, Xp)
+    assert bool((tk <= 2 * tp + 1e-6).all())
+
+
+def test_ns_kernel_counts_its_lanes(ns_inputs):
+    """Armed, the kernel adds its lanes, warm gates and lane-iterations to
+    the counters the plain version's host counts use, and no pass (a host
+    sync); disarmed, it counts nothing."""
+    K, X0, warm, tol, mi = ns_inputs
+    st = {}
+    with tracing.session() as rec:
+        cuda_ns.ns_inverse(K, X0, warm, tol, mi, False, st)
+    c = rec.counts
+    assert c["ns.kernel_lanes"] == c["ns.lanes"] == NS_B
+    assert c["ns.final.lane_iters"] == NS_B
+    assert c["ns.warm_gate_lanes"] == int(warm.sum())
+    assert c["ns.first.lane_iters"] == int(st["first"].sum())
+    assert c["ns.restart.lane_iters"] == int(st["restart"].sum())
+    assert not any(k.endswith(".passes") and v for k, v in c.items())
+    before = cuda_ns.work.values()
+    cuda_ns.ns_inverse(K, X0, warm, tol, mi)
+    torch.cuda.synchronize()
+    assert cuda_ns.work.values() == before
+
+
+def test_ns_kernel_rejects_what_it_does_not_take(ns_inputs):
+    """The wrapper's checks, the kernel's size limit as the source has it,
+    and a larger n on the plain version."""
+    K, X0, warm, tol, mi = ns_inputs
+    lib = cuda_ns._launchers(cuda_build.library())
+    assert lib["max_n"]() == cuda_ns.NMAX
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_ns.ns_inverse(K, X0.transpose(1, 2), warm, tol, mi)
+    with pytest.raises(TypeError, match="bool"):
+        cuda_ns.ns_inverse(K, X0, warm.int(), tol, mi)
+    n = cuda_ns.NMAX + 8     # beyond the kernel's size: the plain version
+    big = torch.eye(n, device="cuda").expand(2, n, n).contiguous()
+    launches = cuda_ns.launches.n
+    X, r = cuda_ns.ns_inverse(big, big, torch.zeros(2, dtype=torch.bool,
+                                                    device="cuda"), tol, mi)
+    assert cuda_ns.launches.n == launches and bool((r <= tol).all())
+
+
+def test_main_path_launches_the_ns_kernel_once_a_step(setup):
+    """The main path's solve inverts K by the kernel, one launch a step."""
+    cfg, trk, st, x0 = setup
+    mp, state, plant, _ = main_path.setup(B, device="cuda")
+    n0 = cuda_ns.launches.n
+    main_path.run_chunk(mp, state, plant, 3)
+    torch.cuda.synchronize()
+    assert cuda_ns.launches.n - n0 == 3
 
 
 # ---- the mesh and the giant path on a one-rank NCCL group ---------------
