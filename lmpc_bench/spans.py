@@ -74,15 +74,16 @@ class Episodes:
 
     def __init__(self, S, seed: int, max_episodes: int = 256):
         self.S = S
-        self.clock = cell_mod.Clock(S.ctrl.step, timed=True)
+        self.stage = cell_mod.stage(S.cell)
+        self.clock = cell_mod.Clock(S.step, True, self.stage.keep_fields)
         self.steps, lanes = cell_mod.plan(seed, max_episodes, S.cell,
                                           S.batch)
         self.lanes = torch.as_tensor(np.stack(lanes), device=S.device)
         self.order = cell_mod.streams(seed, max_episodes, S.cell.traffic)
 
     def run(self, e: int):
-        return cell_mod.run_episode(self.S, self.clock, self.order[e],
-                                    self.steps[e], self.lanes[e])
+        return self.stage.run_episode(self.S, self.clock, self.order[e],
+                                      self.steps[e], self.lanes[e])
 
 
 def profiled(eps: Episodes, n: int, armed: bool):

@@ -3,26 +3,32 @@
 A cell (an entry of ``workloads``) names a configuration and a traffic
 mix. Each lives in a file of its own, found by name:
 
-- ``configs/<config>.json``: the deployment. ``upstream`` holds the
-  controller's settings under the upstream project's names (RacingLMPC
+- ``configs/<config>.json``: the deployment. ``stage`` names its
+  controller stage (``"lmpc"`` where it names none); ``upstream`` holds
+  the controller's settings under the upstream project's names (RacingLMPC
   ``src/main.py``), ``port`` the batch, the lap runner and the port's
   preset and buffer sizes, with ``source``, ``assumed`` and ``reduced``.
+- ``stages/<stage>.py``: what differs between controllers: how the
+  configuration reaches the port's configs, the seeded state, an episode,
+  the kept state fields, the roofline counts and the judge with its
+  reference (``stages/__init__.py`` lists the hooks).
 - ``traffic/<mix>.json``: the episodes: the seed laps' data file, the start
   state, the plant noise.
 - ``limits/<cell>.json``: the limit of each number that decides
   ``correct``, with the readings it was set from, and the sample size.
 
-:func:`port_configs` turns a configuration into the port's
-``LMPCConfig``, ``SolverConfig`` and ``SimConfig`` through their public
-constructors; every field a file names reaches them by name, so a new
-configuration needs a new file and no new code.
+Every field a configuration file names reaches the port's configs by name
+through its stage's public constructors, so a new configuration needs a
+new file and no new code, and a new controller stage a new stage file and
+no edit to the harness.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import pathlib
 from typing import Any, Dict, NamedTuple
+
+from lmpc_bench import stages
 
 ROOT = pathlib.Path(__file__).resolve().parent
 REPO = ROOT.parent
@@ -35,6 +41,7 @@ class Cell(NamedTuple):
     traffic: Dict[str, Any]
     limits: Dict[str, Any]
     chips: int
+    stage: str = stages.DEFAULT
 
 
 def _load(path: pathlib.Path) -> Dict[str, Any]:
@@ -55,37 +62,9 @@ def cell(name: str, bench: Dict[str, Any] = None,
         raise KeyError(f"no workload {name!r} in BENCHMARK.json "
                        f"(have {sorted(work)})")
     w = work[name]
-    return Cell(name=name,
-                config=_load(root / "configs" / f"{w['config']}.json"),
+    config = _load(root / "configs" / f"{w['config']}.json")
+    return Cell(name=name, config=config,
                 traffic=_load(root / "traffic" / f"{w['traffic']}.json"),
                 limits=_load(root / "limits" / f"{name}.json"),
-                chips=int(w["chips"]))
-
-
-def port_configs(config: Dict[str, Any], traffic: Dict[str, Any],
-                 overrides: Dict[str, Any] = None):
-    """(LMPCConfig, SolverConfig, SimConfig) of a configuration under a
-    mix. ``overrides`` replaces fields of the solver (``{"solver": {...}}``)
-    or of the plant (``{"sim": {...}}``), for the control."""
-    from racinglmpc_tpu_torch.utils.config import (LMPCConfig, SimConfig,
-                                                   SolverConfig)
-    up, port = config["upstream"], config["port"]
-    overrides = overrides or {}
-    lmpc = LMPCConfig(
-        N=up["N"], num_ss_it=up["numSS_it"], num_ss_points=up["numSS_Points"],
-        dR=tuple(up["dR_LMPC"]), q_slack=tuple(up["Qslack"]),
-        q_terminal_slack=up["QterminalSlack"], ey_max=up["halfWidth"],
-        delta_max=up["inputConstr"][0], a_max=up["inputConstr"][1],
-        fallback_vt=up["vt"], kernel_h=up["sysid"]["h"],
-        knn_max=up["sysid"]["MaxNumPoint"],
-        model_laps=up["sysid"]["usedIt"], **port["lmpc"])
-    preset = port["solver"]["preset"]
-    solver = dataclasses.replace(getattr(SolverConfig, preset)(),
-                                 **port["solver"].get("replace", {}),
-                                 **overrides.get("solver", {}))
-    noise = traffic["noise"]
-    sim = SimConfig(dt=up["dt"], noise=True,
-                    noise_sigma=tuple(noise["sigma"]),
-                    noise_clip=noise["clip"], noise_gain=noise["gain"],
-                    **port["sim"], **overrides.get("sim", {}))
-    return lmpc, solver, sim
+                chips=int(w["chips"]),
+                stage=config.get("stage", stages.DEFAULT))

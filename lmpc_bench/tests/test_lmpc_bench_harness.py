@@ -16,6 +16,7 @@ import torch
 
 from lmpc_bench import run, spec, trace
 from lmpc_bench.roofline import admm, rollout, sysid
+from lmpc_bench.stages import lmpc as lmpc_stage
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -56,10 +57,10 @@ def test_a_new_cell_and_metric_are_found_by_name(tmp_path):
                                "chips": 1, "why": "test"})
     c = spec.cell("lmpc_b64.pid_lap", bench, root=root)
     assert c.config["port"]["batch"] == 64
-    from lmpc_bench import cell as cell_mod
-    laps = cell_mod.seed_laps(c.traffic, root=root)
+    assert c.stage == "lmpc"           # no "stage" key: the LMPC stage
+    laps = lmpc_stage.seed_laps(c.traffic, root=root)
     assert len(laps) == 4 and laps[0][3] == 303
-    lcfg, solver, sim = spec.port_configs(c.config, c.traffic)
+    lcfg, solver, sim = lmpc_stage.port_configs(c.config, c.traffic)
     assert lcfg.N == 14 and lcfg.num_ss_points == 48 and sim.dt == 0.1
     read = run.metric_reader("lap.closure_count", root=str(root))
     assert read({"counters": {"closures": 3}}) == 3
@@ -69,14 +70,14 @@ def test_port_configs_carry_the_upstream_settings():
     # the one-car configuration, kept for a later cell (PERF.md section 7)
     car = json.loads((spec.ROOT / "configs" / "lmpc_car.json").read_text())
     c = spec.cell("lmpc_b256.converged_lap")
-    lcfg, solver, sim = spec.port_configs(car, c.traffic)
+    lcfg, solver, sim = lmpc_stage.port_configs(car, c.traffic)
     assert (lcfg.dR, lcfg.q_slack, lcfg.q_terminal_slack) == (
         (5.0, 50.0), (5.0, 25.0), 500.0)
     assert (lcfg.ey_max, lcfg.delta_max, lcfg.a_max) == (0.4, 0.5, 10.0)
     assert not lcfg.use_pallas_sysid and lcfg.model_pts == 1024
     assert solver.max_iter == 300 and solver.use_pallas
     assert sim.use_pallas_rollout and sim.noise_sigma == (0.01, 0.01, 0.005)
-    lcfg, _, _ = spec.port_configs(c.config, c.traffic, {"solver": {
+    lcfg, _, _ = lmpc_stage.port_configs(c.config, c.traffic, {"solver": {
         "pallas_iter_precision": "default"}})
     assert lcfg.use_pallas_sysid and lcfg.max_pts == 1024
 
@@ -165,7 +166,8 @@ def test_forbidden_names_are_compared_whole(monkeypatch):
 
 def test_the_benchmark_loads_no_jax():
     code = ("import sys, json; import lmpc_bench.run, lmpc_bench.cell, "
-            "lmpc_bench.control, lmpc_bench.trace, lmpc_bench.reference; "
+            "lmpc_bench.control, lmpc_bench.trace, lmpc_bench.reference, "
+            "lmpc_bench.stages.lmpc; "
             "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True).stdout

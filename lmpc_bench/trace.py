@@ -97,7 +97,8 @@ def kind(e) -> str:
 
 def reduce(prof, window_s: float, harness_syncs: int = 0) -> dict:
     """The profiled window's record: launches, syncs (less the harness's
-    own), device seconds by kernel class and by name, busy seconds, the
+    own), device seconds by kernel class and by name (every kernel, for a
+    roofline reader whose kernel has no class here), busy seconds, the
     idle gaps and the top device operations."""
     dev, host = [], []
     by_name: Dict[str, float] = defaultdict(float)
@@ -135,6 +136,7 @@ def reduce(prof, window_s: float, harness_syncs: int = 0) -> dict:
             "busy_s": busy, "window_s": window_s,
             "kernel_s": {k: by_class.get(k, 0.0)
                          for k in list(KERNELS) + ["other"]},
+            "device_s_by_name": dict(by_name),
             "device_ops": [[k, v] for k, v in top],
             "idle_gaps": [[k, v] for k, v in
                           sorted(gaps.items(), key=lambda kv: -kv[1])[:10]]}
