@@ -17,6 +17,14 @@ B on every tensor (the reference vmaps per-scenario functions):
 A solve is accepted when it is finite and its primal residual is below
 ``accept_pri_res``; otherwise the prediction and the input are held and
 the warm start is zeroed. The applied input is clipped to the input box.
+
+The state carries the last step's solve, as device tensors (no host
+read): the ADMM iterations, whether the solve was rejected, and the
+fused-prologue kernel B4's Newton-Schulz iterations and warm start per
+lane (0 and False where B4 did not run). The JAX package's state has no
+such fields (:data:`SOLVE_INFO`). The step runs under the spans the LMPC
+step uses (``runtime/tracing.py``): ``ctrl.step`` > ``ctrl.sysid`` (LTV),
+``ctrl.assemble``, ``qp.solve``, ``ctrl.accept``.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from racinglmpc_tpu_torch.models import sysid
 from racinglmpc_tpu_torch.models import track as track_mod
 from racinglmpc_tpu_torch.ops import kkt_band
 from racinglmpc_tpu_torch.ops import qp as qp_mod
+from racinglmpc_tpu_torch.runtime import tracing
 from racinglmpc_tpu_torch.utils.batched import lane_where as _w
 from racinglmpc_tpu_torch.utils.config import (LMPCConfig, MPCConfig,
                                                SolverConfig)
@@ -45,6 +54,24 @@ class MPCState(NamedTuple):
     warm_y: torch.Tensor   # (B, m)
     fac: qp_mod.FactorCache
     feasible: torch.Tensor  # (B,) bool: last solve accepted and solved
+    iters: torch.Tensor     # (B,) int32 ADMM iterations of the last solve
+    rejected: torch.Tensor  # (B,) bool: last solve rejected, input held
+    ns_iters: torch.Tensor  # (B,) int32 B4's Newton-Schulz iterations
+    warm: torch.Tensor      # (B,) bool: B4 took the warm inverse
+
+
+# the fields of the port's state that the JAX package's lacks
+SOLVE_INFO = ("iters", "rejected", "ns_iters", "warm")
+
+
+def solve_info(batch: int, device="cuda") -> dict:
+    """:data:`SOLVE_INFO` of a state no solve has touched."""
+    i32 = dict(dtype=torch.int32, device=device)
+    no = dict(dtype=torch.bool, device=device)
+    return dict(iters=torch.zeros((batch,), **i32),
+                rejected=torch.zeros((batch,), **no),
+                ns_iters=torch.zeros((batch,), **i32),
+                warm=torch.zeros((batch,), **no))
 
 
 def init_state(N: int, batch: int, x_lin=None, u_lin=None,
@@ -70,7 +97,8 @@ def init_state(N: int, batch: int, x_lin=None, u_lin=None,
         warm_y=torch.zeros((batch, m), **kw),
         fac=qp_mod.init_factor_cache(batch, nz, m, dtype=dtype, device=device,
                                      with_kinv=with_kinv),
-        feasible=torch.zeros((batch,), dtype=torch.bool, device=device))
+        feasible=torch.zeros((batch,), dtype=torch.bool, device=device),
+        **solve_info(batch, device))
 
 
 def _templates(cfg: MPCConfig, dtype, device):
@@ -110,24 +138,36 @@ class MPCController:
         return (kkt_band.band_structure(self.dims.N, self.dims.K)
                 if self.cfg.time_varying else None)
 
+    @tracing.traced("ctrl.sysid")
+    def sysid(self, state: MPCState) -> ocp.StageDynamics:
+        """The LTV step's local regression at the linearization
+        trajectory."""
+        N = self.cfg.N
+        return ocp.StageDynamics(*sysid.local_linearization_horizon(
+            self.store, self.trk, state.x_lin[:, :N], state.u_lin,
+            self.lmpc_cfg, self.dt_ctrl))
+
     def build_qp(self, state: MPCState, x0: torch.Tensor) -> qp_mod.QPData:
-        dyn = self.dyn
-        if self.store is not None:
-            N = self.cfg.N
-            dyn = ocp.StageDynamics(*sysid.local_linearization_horizon(
-                self.store, self.trk, state.x_lin[:, :N], state.u_lin,
-                self.lmpc_cfg, self.dt_ctrl))
+        dyn = self.dyn if self.store is None else self.sysid(state)
         return ocp.assemble_qp(self.dims, self.tmpl, dyn, x0, state.u_old,
                                self.cfg.dR)
 
+    @tracing.traced("ctrl.step")
     def __call__(self, state: MPCState, x0: torch.Tensor, noise=None):
-        dims, scfg = self.dims, self.solver_cfg
-        sol = qp_mod.solve(self.build_qp(state, x0), scfg,
+        sol = qp_mod.solve(self.build_qp(state, x0), self.solver_cfg,
                            warm=(state.warm_x, state.warm_y), fac=state.fac,
                            structure=self.structure)
+        return self.accept(state, x0, sol)
+
+    @tracing.traced("ctrl.accept")
+    def accept(self, state: MPCState, x0: torch.Tensor,
+               sol: qp_mod.QPSolution):
+        """Accept or hold the solve, clip the input, shift the warm start
+        and (LTV) roll the linearization trajectory. Returns (state, u)."""
+        dims = self.dims
         x_pred, u_pred, _, _, _ = ocp.unpack(dims, sol.x)
         ok = (torch.isfinite(sol.x).all(-1)
-              & (sol.pri_res < scfg.accept_pri_res))
+              & (sol.pri_res < self.solver_cfg.accept_pri_res))
         x_pred = _w(ok, x_pred, state.x_pred)
         u_pred = _w(ok, u_pred, state.u_old[:, None, :].expand_as(u_pred))
         wx_s, wy_s = ocp.shift_warm(dims, sol.x, sol.y)
@@ -136,7 +176,10 @@ class MPCController:
             u_old=u, x_pred=x_pred, u_pred=u_pred,
             warm_x=_w(ok, wx_s, torch.zeros_like(sol.x)),
             warm_y=_w(ok, wy_s, torch.zeros_like(sol.y)), fac=sol.fac,
-            feasible=sol.solved & ok)
+            feasible=sol.solved & ok, iters=sol.iters, rejected=~ok,
+            # without B4 the zeros init_state made are carried
+            ns_iters=state.ns_iters if sol.ns_iters is None else sol.ns_iters,
+            warm=state.warm if sol.warm is None else sol.warm)
         if self.store is not None:    # roll the linearization trajectory
             new = new._replace(
                 x_lin=torch.cat([x_pred[:, 1:], x_pred[:, -1:]], 1),

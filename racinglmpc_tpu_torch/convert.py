@@ -6,7 +6,9 @@ The reference's state types are NamedTuples of arrays. Given one as a
 NamedTuple of tensors with the same fields, shapes and dtypes, for
 ``Track``, ``LapStore``, ``SafeSet``, ``ExtBuffer``, ``FactorCache``,
 ``LMPCState`` and ``MPCState`` (nested) and ``PlantState`` (a leading
-scenario axis is expected wherever the port's type has one).
+scenario axis is expected wherever the port's type has one); the port's
+``MPCState`` solve information, which the reference's state lacks
+(``mpc.SOLVE_INFO``), starts as no solve has touched it.
 :func:`config_from_jax` builds one of the port's config dataclasses
 (``SolverConfig``, ``ShardedSolverConfig``, ``FTOCPDims``, ...) from the
 reference's, and :func:`giant_from_jax` the port's ``GiantFTOCP`` (its QP
@@ -24,7 +26,8 @@ from racinglmpc_tpu_torch.controllers.giant_ftocp import GiantFTOCP
 from racinglmpc_tpu_torch.controllers.lmpc import (
     ExtBuffer, LMPCState, SafeSet)
 from racinglmpc_tpu_torch.controllers.ocp import FTOCPDims
-from racinglmpc_tpu_torch.controllers.mpc import MPCState
+from racinglmpc_tpu_torch.controllers.mpc import (SOLVE_INFO, MPCState,
+                                                  solve_info)
 from racinglmpc_tpu_torch.models.sysid import LapStore
 from racinglmpc_tpu_torch.ops.qp import FactorCache, QPData
 
@@ -52,9 +55,15 @@ def from_jax(cls, d, device="cuda", float_dtype: Optional[torch.dtype] = None):
     nested = _NESTED.get(cls, {})
     kw = {}
     for name in cls._fields:
+        if cls is MPCState and name in SOLVE_INFO and name not in fields:
+            continue
         v = fields[name]
         kw[name] = (from_jax(nested[name], v, device, float_dtype)
                     if name in nested else _tensor(v, device, float_dtype))
+    if cls is MPCState:
+        # the port's solve information, which the reference's state lacks
+        info = solve_info(kw["feasible"].shape[0], kw["feasible"].device)
+        kw.update((k, v) for k, v in info.items() if k not in kw)
     return cls(**kw)
 
 

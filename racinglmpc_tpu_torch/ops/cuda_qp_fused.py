@@ -42,6 +42,13 @@ then B1's main kernel on the refreshed inverse, in the layout
 :data:`streamed` (B1's launch counters do not count it); then B1's rescue
 launch (``cuda_qp.launch_rescue``) for the lanes that need it.
 :func:`plan` is the prologue's shared memory, CTAs per SM and waves.
+
+Counters. :data:`launches` counts calls. While a tracing session is armed
+each call adds its per-lane outputs to :data:`work` on the device (sums of
+``FusedResult`` fields, a few small launches and no host sync; disarmed
+nothing is added): ``fused.lanes``, ``fused.warm_lanes`` (the warm start
+taken), ``fused.ns_lane_iters`` (Newton-Schulz iterations of both passes)
+and ``fused.rescued_lanes``. The plain version counts the same way.
 """
 from __future__ import annotations
 
@@ -61,6 +68,9 @@ launches = tracing.LaunchCounter("fused_admm")
 precision_launches = {p: tracing.LaunchCounter(f"fused_admm_{p}")
                       for p in cuda_qp.ITER_PRECISIONS}
 streamed = tracing.ScenarioCounter("fused_admm_streamed")
+work = tracing.ScenarioCounter(
+    "fused", ("lanes", "warm_lanes", "ns_lane_iters", "rescued_lanes"),
+    armed_only=True)
 MAX_REGS = 128    # registers a thread may take at 512 threads, one CTA an SM
 
 
@@ -235,9 +245,9 @@ def admm_iterate_fused(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0, z0,
               rescue_rho_scale=rescue_rho_scale,
               rescue_trigger=rescue_trigger, rescue_exit=rescue_exit)
     if not P.is_cuda:
-        return admm_iterate_fused_plain(P, A, kinv0, warm_ok, q, l, u, rho, D,
-                                        E, c, x0, z0, y0,
-                                        iter_precision=iter_precision, **kw)
+        return _counted(admm_iterate_fused_plain(
+            P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0, z0, y0,
+            iter_precision=iter_precision, **kw))
     Bsz, n, _ = P.shape
     m = A.shape[1]
     for t, name, shape in (
@@ -277,6 +287,18 @@ def admm_iterate_fused(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0, z0,
     if rescue_max_iter > 0:
         cuda_qp.launch_rescue(p, P, kinv, A, nvecs, vecs, c_inv, kpad, x, z,
                               y, stats, flags, ws, plan.name)
-    return FusedResult(x, y, stats[:, 0], stats[:, 1], flags[:, 0],
-                       flags[:, 1] != 0, kinv, ns_resid, flags[:, 2] != 0,
-                       kpad, ns_info[:, 0] != 0, ns_info[:, 1])
+    return _counted(FusedResult(
+        x, y, stats[:, 0], stats[:, 1], flags[:, 0], flags[:, 1] != 0, kinv,
+        ns_resid, flags[:, 2] != 0, kpad, ns_info[:, 0] != 0, ns_info[:, 1]))
+
+
+def _counted(r: FusedResult) -> FusedResult:
+    """Add the call's per-lane outputs to :data:`work` while armed."""
+    if tracing.armed():
+        cnt = work.tensor(r.x.device)
+        cnt += torch.stack([torch.full((), r.x.shape[0], dtype=torch.int32,
+                                       device=cnt.device),
+                            r.warm.sum(dtype=torch.int32),
+                            r.ns_iters.sum(dtype=torch.int32),
+                            r.rescued.sum(dtype=torch.int32)])
+    return r

@@ -92,6 +92,12 @@ class QPSolution(NamedTuple):
     iters: torch.Tensor    # (B,) int32
     polished: torch.Tensor  # (B,) bool
     fac: FactorCache
+    # the fused-prologue kernel's per-lane outputs (B4 only, else None):
+    # Newton-Schulz iterations of both passes, the warm start taken, and
+    # the rho-escalation rescue run
+    ns_iters: Optional[torch.Tensor] = None  # (B,) int32
+    warm: Optional[torch.Tensor] = None      # (B,) bool
+    rescued: Optional[torch.Tensor] = None   # (B,) bool
 
 
 def _amax(a):
@@ -418,14 +424,17 @@ def solve(qp: QPData, cfg: SolverConfig = SolverConfig(), warm=None,
     total = cfg.max_iter
     sigma, alpha = cfg.sigma, cfg.alpha
     if kernel and cfg.pallas_fused_ns and not use_structured:
-        pro = _prologue(qp, cfg, warm, fac)
+        with tracing.span("qp.prologue"):
+            pro = _prologue(qp, cfg, warm, fac)
         r = cuda_qp_fused.admm_iterate_fused(**fused_args(pro, cfg))
         D, E, c = pro.D, pro.E, pro.c
-        return _finish(orig, cfg, x_u=D * r.x, y_u=E * r.y / c[:, None],
-                       solved=r.solved, iters=r.iters, kinv=r.kinv,
-                       ns_resid=r.ns_resid, pre=(r.pri, r.dua), is_eq=pro.is_eq,
-                       D=D, E=E, c=c, age=pro.age, ns_tol=pro.ns_tol,
-                       keep_kinv=pro.keep_kinv)
+        sol = _finish(orig, cfg, x_u=D * r.x, y_u=E * r.y / c[:, None],
+                      solved=r.solved, iters=r.iters, kinv=r.kinv,
+                      ns_resid=r.ns_resid, pre=(r.pri, r.dua),
+                      is_eq=pro.is_eq, D=D, E=E, c=c, age=pro.age,
+                      ns_tol=pro.ns_tol, keep_kinv=pro.keep_kinv)
+        return sol._replace(ns_iters=r.ns_iters, warm=r.warm,
+                            rescued=r.rescued)
     pro, Kinv1, ns_resid1 = admm_inputs(
         qp, cfg, warm, fac, structure if use_structured else None)
     qp_s, D, E, c = pro.qp_s, pro.D, pro.E, pro.c

@@ -531,6 +531,35 @@ def test_fused_admm_matches_plain(stages, stage):
                                          *args[6:], **kw)
 
 
+@pytest.mark.parametrize("stage", ["lti", "ltv"])
+def test_fused_counters_sum_the_per_lane_outputs(stages, stage):
+    """Armed, B4 adds its lanes, warm lanes, Newton-Schulz lane-iterations
+    and rescued lanes to the tracer's device counters: the sums of
+    ``FusedResult``'s fields, with no host sync in the call (PyTorch's
+    sync check raises on one); disarmed it adds nothing."""
+    cfg, trk, res = stages
+    f = stage_path.stage_ftocps(res, cfg, stage, trk)
+    kw = qp_mod.fused_inputs(f.qp, cfg.solver, f.warm, f.fac)
+    args = [kw.pop(n) for n in FUSED_NAMES]
+    cuda_qp_fused.admm_iterate_fused(*args, **kw)
+    torch.cuda.synchronize()
+    with tracing.session() as rec:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            r = cuda_qp_fused.admm_iterate_fused(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    c = rec.counts
+    assert [c["fused.lanes"], c["fused.warm_lanes"], c["fused.ns_lane_iters"],
+            c["fused.rescued_lanes"]] == [
+        B, int(r.warm.sum()), int(r.ns_iters.sum()), int(r.rescued.sum())]
+    assert c["fused.ns_lane_iters"] >= B
+    before = cuda_qp_fused.work.values()
+    cuda_qp_fused.admm_iterate_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_qp_fused.work.values() == before
+
+
 def test_bench_headline_launches_each_kernel_once_a_step(setup):
     """The bench's headline at batch 16, 5 steps a chunk: B1, B2 and B3
     launch once a step and no scenario streams (``time_chunks`` raises
