@@ -31,14 +31,16 @@ It builds the CUDA kernels from ``racinglmpc_tpu_torch/csrc`` (nvcc, into
    main path's shapes (the FTOCPs, lap store and plant states of the batch
    just driven): rollout |dx| < 1e-4, sys-ID |dA|,|dB|,|dC| < 1e-3 (also on
    a ragged store with a 4-row and an empty lap, on a store of tied
-   feature rows and on the store zero-padded to T = 1024, and with knn_max
-   8 and 40 through B2's rescan instance), each bit-identical
-   over two calls, and B2's shared-memory plan against the kernel source's
-   count and the card's occupancy (one wave); B2 and B3 are timed by CUDA
-   events around 20 back-to-back launches, divided by 20, and every kernel's
-   device time comes from a short torch.profiler window; B1 in both of its
-   layouts (resident: Kinv and the compressed A and P in shared memory;
-   stream: the matrices read from global memory in every product):
+   feature rows and on the store zero-padded to T = 1024, on the LTV
+   step's one-lap stores (K = 1, the one-buffer plan) at T = 512 and 1024,
+   and with knn_max 8 and 40 through B2's rescan instance), each
+   bit-identical over two calls, and B2's shared-memory plans against the
+   kernel source's count and the card's occupancy (one wave); B2 and B3
+   are timed by CUDA events around 20 back-to-back launches, divided by
+   20, and every kernel's device time comes from a short torch.profiler
+   window; B1 in both of its layouts (resident: Kinv and the compressed
+   A and P in shared memory; stream: the matrices read from global memory
+   in every product):
    |dx| < 3e-2 after 16 fixed iterations, >= 90% solved at tolerance, and
    a forced rho-escalation
    rescue with the same rescued flags and iteration counts as the plain
@@ -2092,7 +2094,8 @@ def main() -> int:
     # B2: sys-ID at the horizon of the current state on the full store, a
     # ragged store (a lap of 4 rows, one of 37, an empty one), a store
     # whose rows come in pairs of equal features with different successors
-    # (ties decide the picks) and the store zero-padded to T = 1024
+    # (ties decide the picks), the store zero-padded to T = 1024 and the
+    # LTV step's one-lap stores
     N = cfg.lmpc.N
     x_lin = state.x_lin[:, :N].contiguous()
     u_lin = state.u_lin.contiguous()
@@ -2114,6 +2117,17 @@ def main() -> int:
               "T=1024": sysid.LapStore(
                   torch.nn.functional.pad(st.x, pad).contiguous(),
                   torch.nn.functional.pad(st.u, pad).contiguous(), st.steps)}
+    # the LTV step's stores: one lap (K = 1, the one-buffer plan) at the PID
+    # lap's T = 512 (ltv_b256.pid_store) and config3_ltv's T = 1024
+    ltv_rows = (512, 1024)
+    for rows in ltv_rows:
+        pad1 = (0, 0, 0, rows - min(T, rows))
+        steps1 = st.steps[:, :1]
+        stores[f"K=1 T={rows}"] = sysid.LapStore(
+            torch.nn.functional.pad(st.x[:, :1, :rows], pad1).contiguous(),
+            torch.nn.functional.pad(st.u[:, :1, :rows], pad1).contiguous(),
+            torch.where(steps1 < sysid._EMPTY, steps1.clamp(max=rows),
+                        steps1))
 
     def sysid_k(store, lcfg=cfg.lmpc):
         return cuda_sysid.local_linearization_horizon(
@@ -2155,6 +2169,15 @@ def main() -> int:
         check(f"sysid_plan_T{rows}_matches_kernel_source",
               card == (pl.nbytes, pl.ctas_per_sm) and pl.waves == 1,
               "(one wave of the batch)")
+    for rows in ltv_rows:
+        pl = cuda_sysid.plan(1, rows, N, B)
+        card = (cuda_sysid.smem_bytes_on_card(rows, N, pl.nbuf),
+                cuda_sysid.ctas_per_sm_on_card(rows, N, pl.nbuf))
+        print(f"[chip_smoke] B2 plan at K=1, T={rows}, N={N}: {pl}; "
+              f"kernel source {card[0]} B, CTAs per SM on the card {card[1]}")
+        check(f"sysid_plan_K1_T{rows}_matches_kernel_source",
+              card == (pl.nbytes, pl.ctas_per_sm) and pl.nbuf == 1
+              and pl.waves == 1, "(one buffer, one wave of the batch)")
     ms = kernel_bench.event_ms(lambda: sysid_k(st))
     dms = kernel_bench.device_ms(lambda: sysid_k(st),
                                  kernel_bench.KERNELS["sysid"])

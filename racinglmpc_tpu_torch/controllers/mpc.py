@@ -10,8 +10,10 @@ B on every tensor (the reference vmaps per-scenario functions):
   Newton-Schulz refresh is the cheap path (the one regime where the fused
   kernel B4 contracts its warm start).
 - **LTV**: every step the model is re-identified at the linearization
-  trajectory (``models/sysid.local_linearization_horizon``), the QP is
-  reassembled, and after the solve the trajectory is rolled forward:
+  trajectory: by the sys-ID kernel B2 (``ops/cuda_sysid.py``) for a
+  float32 store on CUDA, else (on the CPU, in float64) by the plain
+  ``models/sysid.local_linearization_horizon``; the QP is reassembled, and
+  after the solve the trajectory is rolled forward:
   x_lin <- [x_pred[1:], x_pred[-1]], u_lin <- [u_pred[1:], u_pred[-1]].
 
 A solve is accepted when it is finite and its primal residual is below
@@ -36,7 +38,7 @@ import torch
 from racinglmpc_tpu_torch.controllers import ocp
 from racinglmpc_tpu_torch.models import sysid
 from racinglmpc_tpu_torch.models import track as track_mod
-from racinglmpc_tpu_torch.ops import kkt_band
+from racinglmpc_tpu_torch.ops import cuda_sysid, kkt_band
 from racinglmpc_tpu_torch.ops import qp as qp_mod
 from racinglmpc_tpu_torch.runtime import tracing
 from racinglmpc_tpu_torch.utils.batched import lane_where as _w
@@ -118,7 +120,8 @@ def _clip_u(u: torch.Tensor, cfg: MPCConfig) -> torch.Tensor:
 class MPCController:
     """A built LTI (``store`` None, fixed ``dyn``) or LTV controller:
     ``ctrl(state, x0, noise=None) -> (state, u)``; :meth:`build_qp` is the
-    step's FTOCP (the smoke script reads it)."""
+    step's FTOCP (the smoke script reads it). ``table``: the LTV track's
+    segment table on the host, the sys-ID kernel's launch arguments."""
 
     cfg: MPCConfig
     solver_cfg: SolverConfig
@@ -129,6 +132,7 @@ class MPCController:
     trk: Optional[track_mod.Track] = None
     lmpc_cfg: Optional[LMPCConfig] = None
     dt_ctrl: float = 0.1
+    table: Optional[track_mod.TrackTable] = None
 
     @property
     def structure(self):
@@ -138,14 +142,26 @@ class MPCController:
         return (kkt_band.band_structure(self.dims.N, self.dims.K)
                 if self.cfg.time_varying else None)
 
+    @property
+    def use_kernel_sysid(self) -> bool:
+        """The LTV step's rule for the sys-ID kernel B2: a float32 store on
+        CUDA. On the CPU and in float64 the step takes the plain sys-ID;
+        a store on the card that B2 cannot take raises, never falls back."""
+        return (self.store is not None and self.store.x.is_cuda
+                and self.store.x.dtype == torch.float32)
+
     @tracing.traced("ctrl.sysid")
     def sysid(self, state: MPCState) -> ocp.StageDynamics:
         """The LTV step's local regression at the linearization
-        trajectory."""
-        N = self.cfg.N
+        trajectory: one launch of B2 by :attr:`use_kernel_sysid`, else the
+        plain version."""
+        x_lin, u_lin = state.x_lin[:, :self.cfg.N], state.u_lin
+        if self.use_kernel_sysid:
+            return ocp.StageDynamics(*cuda_sysid.local_linearization_horizon(
+                self.store, self.trk, x_lin.contiguous(), u_lin.contiguous(),
+                self.lmpc_cfg, self.dt_ctrl, table=self.table))
         return ocp.StageDynamics(*sysid.local_linearization_horizon(
-            self.store, self.trk, state.x_lin[:, :N], state.u_lin,
-            self.lmpc_cfg, self.dt_ctrl))
+            self.store, self.trk, x_lin, u_lin, self.lmpc_cfg, self.dt_ctrl))
 
     def build_qp(self, state: MPCState, x0: torch.Tensor) -> qp_mod.QPData:
         dyn = self.dyn if self.store is None else self.sysid(state)
@@ -210,7 +226,9 @@ def make_ltv_mpc(cfg: MPCConfig, store: sysid.LapStore,
                  solver_cfg: SolverConfig = SolverConfig(),
                  dt_ctrl: float = 0.1, dtype=torch.float32):
     """LTV-MPC with per-step local sys-ID over a fixed lap store (B, K, T,
-    ...); ``lmpc_cfg`` carries the regression hyper-parameters. Returns
+    ...); ``lmpc_cfg`` carries the regression hyper-parameters (B2 or the
+    plain sys-ID by :attr:`MPCController.use_kernel_sysid`, whatever its
+    ``use_pallas_sysid``: that switch is the LMPC step's). Returns
     ``(controller, init_state)`` with the linearization trajectory started
     from the first N+1 rows of each scenario's stored lap in slot 0."""
     device = store.x.device
@@ -218,7 +236,7 @@ def make_ltv_mpc(cfg: MPCConfig, store: sysid.LapStore,
     N, Bsz = cfg.N, store.x.shape[0]
     ctrl = MPCController(cfg=cfg, solver_cfg=solver_cfg, dims=dims,
                          tmpl=tmpl, store=store, trk=trk, lmpc_cfg=lmpc_cfg,
-                         dt_ctrl=dt_ctrl)
+                         dt_ctrl=dt_ctrl, table=track_mod.track_table(trk))
     return ctrl, init_state(
         N, Bsz, store.x[:, 0, :N + 1], store.u[:, 0, :N], dtype=dtype,
         nz=dims.nz, m=dims.mi + dims.me, solver=solver_cfg,

@@ -7,7 +7,10 @@ field). The Pallas switches keep their names; in the port they select the
 hand-written CUDA kernels:
 
 - ``SimConfig.use_pallas_rollout``  -> ``ops/cuda_rollout.py`` (B3)
-- ``LMPCConfig.use_pallas_sysid``   -> ``ops/cuda_sysid.py``   (B2)
+- ``LMPCConfig.use_pallas_sysid``   -> ``ops/cuda_sysid.py``   (B2), in
+  the LMPC step only (the reference reads it there alone); the LTV step
+  takes B2 for any float32 store on CUDA
+  (``MPCController.use_kernel_sysid``)
 - ``SolverConfig.use_pallas``       -> ``ops/cuda_qp.py``      (B1)
 - ``SolverConfig.pallas_fused_ns``  -> ``ops/cuda_qp_fused.py`` (B4)
 
@@ -116,6 +119,8 @@ class LMPCConfig:
     reg_jitter: float = 1e-9
     feat_scaling: Tuple[float, ...] = (0.1, 1.0, 1.0, 1.0, 1.0)
 
+    # the LMPC step's switch for B2 (the reference's); the LTV step does
+    # not read it and takes B2 for any float32 store on CUDA
     use_pallas_sysid: bool = False
     sysid_interpret: bool = False
 

@@ -15,6 +15,7 @@ import torch
 import chip_smoke
 
 from racinglmpc_tpu_torch.controllers import lmpc as lmpc_mod
+from racinglmpc_tpu_torch.controllers import mpc as mpc_mod
 from racinglmpc_tpu_torch.models import dynamics, sysid
 from racinglmpc_tpu_torch.models.track import make_track, track_table
 from racinglmpc_tpu_torch.ops import (cuda_build, cuda_ns, cuda_qp,
@@ -208,6 +209,76 @@ def test_sysid_model_pts_off_the_gate_takes_the_plain_path(setup):
     torch.cuda.synchronize()
     assert cuda_sysid.launches.n == 0
     assert bool(torch.isfinite(u).all())
+
+
+@pytest.fixture(scope="module")
+def ltv_cell():
+    """The benchmark's LTV cell (``ltv_b256.pid_store``) at batch 8: the
+    PID lap's store (K = 1, T = 512), N = 14, knn 7, float32, B4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from lmpc_bench import spec
+    from lmpc_bench.stages import ltv
+    return ltv.setup(spec.cell("ltv_b256.pid_store"), "cuda", batch=8)
+
+
+def _ltv_sysid_plain(ctrl, state):
+    return cuda_sysid.local_linearization_horizon_plain(
+        ctrl.store, ctrl.trk, state.x_lin[:, :ctrl.cfg.N], state.u_lin,
+        ctrl.lmpc_cfg, ctrl.dt_ctrl)
+
+
+def test_ltv_step_launches_sysid_once(ltv_cell):
+    """One LTV step at the cell's shapes launches B2 once; its models agree
+    with the plain sys-ID's within 1e-3, before and after the roll."""
+    s = ltv_cell
+    ctrl, st = s.ctrl, s.state0
+    assert tuple(ctrl.store.x.shape) == (8, 1, 512, 6)
+    assert ctrl.cfg.N == 14 and ctrl.lmpc_cfg.knn_max == 7
+    cuda_sysid.launches.reset()
+    new, u = ctrl(st, s.plant0.x)
+    torch.cuda.synchronize()
+    assert cuda_sysid.launches.n == 1
+    assert bool(torch.isfinite(u).all())
+    for state in (st, new):
+        k = ctrl.sysid(state)
+        for a, b in zip(k, _ltv_sysid_plain(ctrl, state)):
+            assert float((a - b).abs().max()) < 1e-3
+    assert cuda_sysid.launches.n == 3
+
+
+def test_ltv_store_off_the_kernel_raises(ltv_cell):
+    """A float32 store on the card that B2 cannot take (an odd T) raises in
+    the LTV step's sys-ID: no quiet fall back to the plain version."""
+    s = ltv_cell
+    st = s.ctrl.store
+    store = sysid.LapStore(st.x[:, :, :511].contiguous(),
+                           st.u[:, :, :511].contiguous(),
+                           st.steps.clamp(max=511))
+    ctrl = dataclasses.replace(s.ctrl, store=store)
+    cuda_sysid.launches.reset()
+    with pytest.raises(ValueError, match="T must be even"):
+        ctrl.sysid(s.state0)
+    assert cuda_sysid.launches.n == 0
+
+
+def test_ltv_float64_controller_takes_the_plain_sysid(ltv_cell):
+    """The same controller in float64: no B2 launch, the plain sys-ID's
+    bits."""
+    s = ltv_cell
+    store = sysid.LapStore(s.ctrl.store.x.double(), s.ctrl.store.u.double(),
+                           s.ctrl.store.steps)
+    trk = make_track(dtype=torch.float64, device="cuda")
+    ctrl, st = mpc_mod.make_ltv_mpc(s.mcfg, store, trk, s.lcfg, s.solver,
+                                    s.sim.dt, dtype=torch.float64)
+    cuda_sysid.launches.reset()
+    new, u = ctrl(st, s.plant0.x.double())
+    torch.cuda.synchronize()
+    assert cuda_sysid.launches.n == 0
+    assert bool(torch.isfinite(u).all())
+    for a, b in zip(ctrl.sysid(new), _ltv_sysid_plain(ctrl, new)):
+        assert torch.equal(a, b)
+    assert cuda_sysid.launches.n == 0
 
 
 def test_rollout_with_batched_vehicle_params(setup):

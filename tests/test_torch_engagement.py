@@ -12,22 +12,29 @@ on the CPU.
   ``VehicleParams`` takes the plain plant step, and a batched run equals
   the runs of its scenarios one by one.
 
+- The LTV step (``MPCController.sysid``) takes B2 for a float32 store on
+  CUDA (``MPCController.use_kernel_sysid``), whatever ``use_pallas_sysid``
+  says; the rule is tried on stores that report a device and a dtype. On
+  the CPU the step runs the plain sys-ID, bit for bit.
+
 ``sysid_interpret=True`` stands in for a CUDA track here: it engages the
 kernel's wrapper, which runs the plain version on CPU tensors.
 """
 import dataclasses
+import types
 
 import pytest
 import torch
 
 from racinglmpc_tpu_torch.controllers import lmpc as lmpc_mod
+from racinglmpc_tpu_torch.controllers import mpc as mpc_mod
 from racinglmpc_tpu_torch.models import sysid
-from racinglmpc_tpu_torch.models.track import make_track
+from racinglmpc_tpu_torch.models.track import make_track, track_table
 from racinglmpc_tpu_torch.ops import cuda_rollout, cuda_sysid
 from racinglmpc_tpu_torch.runtime import experiment as exp
 from racinglmpc_tpu_torch.runtime import loop
-from racinglmpc_tpu_torch.utils.config import (LMPCConfig, SimConfig,
-                                               VehicleParams)
+from racinglmpc_tpu_torch.utils.config import (LMPCConfig, MPCConfig,
+                                               SimConfig, VehicleParams)
 
 torch.set_num_threads(1)
 
@@ -160,3 +167,72 @@ def test_batched_vp_run_equals_scalar_runs(monkeypatch):
         torch.testing.assert_close(batched.u[i], one.u[0], rtol=0,
                                    atol=1e-6)
     assert not torch.equal(batched.x[0], batched.x[1])
+
+
+def _ltv_controller(dtype, use_pallas_sysid=False):
+    """LTV-MPC at N = 14 over a store of one lap (T = 128) on the CPU."""
+    g = torch.Generator().manual_seed(5)
+    T, B = 120, 3
+    x = torch.randn((B, T, 6), generator=g, dtype=dtype) * 0.1
+    x[..., 0] += 0.8
+    x[..., 4] = 0.08 * torch.arange(T, dtype=dtype)
+    u = torch.randn((B, T, 2), generator=g, dtype=dtype) * 0.1
+    store = sysid.add_lap(sysid.make_lap_store(B, 1, 128, dtype=dtype,
+                                               device="cpu"),
+                          x, u, torch.full((B,), T))
+    cfg = dataclasses.replace(MPCConfig(), time_varying=True)
+    ctrl, st = mpc_mod.make_ltv_mpc(
+        cfg, store, make_track(dtype=dtype, device="cpu"),
+        LMPCConfig(model_laps=1, model_pts=128,
+                   use_pallas_sysid=use_pallas_sysid), dtype=dtype)
+    return ctrl, st, x[:, 5] + 0.01
+
+
+@pytest.mark.parametrize("on_card, dtype, kernel", [
+    (True, torch.float32, True),
+    (True, torch.float64, False),
+    (True, torch.bfloat16, False),
+    (False, torch.float32, False),
+    (False, torch.float64, False),
+])
+def test_ltv_kernel_sysid_rule(on_card, dtype, kernel):
+    """B2 for a float32 store on CUDA, the plain sys-ID elsewhere."""
+    ctrl, _, _ = _ltv_controller(torch.float32)
+    x = types.SimpleNamespace(is_cuda=on_card, dtype=dtype)
+    ctrl = dataclasses.replace(
+        ctrl, store=sysid.LapStore(x, ctrl.store.u, ctrl.store.steps))
+    assert ctrl.use_kernel_sysid is kernel
+
+
+def test_lti_controller_runs_no_sysid():
+    """The LTI controller (no store) never takes the sys-ID kernel."""
+    ctrl, _, _ = _ltv_controller(torch.float32)
+    assert not dataclasses.replace(ctrl, store=None).use_kernel_sysid
+
+
+@pytest.mark.parametrize("use_pallas_sysid", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ltv_step_on_the_cpu_takes_the_plain_sysid(monkeypatch, dtype,
+                                                   use_pallas_sysid):
+    """On CPU tensors the LTV step never reaches B2's wrapper, whatever
+    ``use_pallas_sysid`` says, and its models are the plain sys-ID's bit
+    for bit; ``make_ltv_mpc`` holds the track's table for the kernel's
+    launch."""
+    ctrl, st, x0 = _ltv_controller(dtype, use_pallas_sysid)
+    assert ctrl.table == track_table(ctrl.trk)
+
+    def no_kernel(*a, **k):
+        raise AssertionError("B2's wrapper reached on the CPU")
+
+    monkeypatch.setattr(cuda_sysid, "local_linearization_horizon", no_kernel)
+    before = cuda_sysid.launches.n
+    st1, u = ctrl(st, x0)
+    assert bool(torch.isfinite(u).all())
+    for state in (st, st1):
+        got = ctrl.sysid(state)
+        want = sysid.local_linearization_horizon(
+            ctrl.store, ctrl.trk, state.x_lin[:, :ctrl.cfg.N], state.u_lin,
+            ctrl.lmpc_cfg, ctrl.dt_ctrl)
+        for a, b in zip(got, want):
+            assert a.dtype == dtype and torch.equal(a, b)
+    assert cuda_sysid.launches.n == before
