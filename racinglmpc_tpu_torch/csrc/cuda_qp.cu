@@ -54,12 +54,14 @@
 // Iteration precision: the main kernels are instantiated at each of
 // PREC_HIGHEST, PREC_BF16X3 and PREC_DEFAULT (the reference's
 // pallas_iter_precision "highest", "bf16x3", "default"); only the products
-// of the main loop's iterations change (qp_common.cuh: the *_lp passes,
-// the operands split on the fly, three float32 accumulators an output at
-// bf16x3), and the rescue always iterates at PREC_HIGHEST. At PREC_HIGHEST
-// the loop is the code it was before the variants came. bf16x3 triples the
-// iteration's multiply-adds and adds the splits, on the CUDA cores: a
-// float32 FMA is already exact in one pass here, so no variant is faster.
+// of the main loop's iterations change (qp_common.cuh: one set of passes
+// templated on the precision, its accumulator Acc; the operands split on
+// the fly, three float32 accumulators an output at bf16x3), and the rescue
+// always iterates at PREC_HIGHEST. At PREC_HIGHEST an output is one
+// float32 fmaf chain, with the bits the loop had before the variants
+// came. bf16x3 triples the iteration's multiply-adds and adds the splits,
+// on the CUDA cores: a float32 FMA is already exact in one pass here, so
+// no variant is faster.
 #include "qp_common.cuh"
 
 // (NT, 1): without the 1, ptxas may cap this kernel at 64 registers and

@@ -416,38 +416,164 @@ static __device__ bool build_sparse(const QPParams& p, const float* A,
 }
 
 // ---------------------------------------------------------------------------
-// products
+// products, at an iteration precision PR
 // ---------------------------------------------------------------------------
+// At PREC_HIGHEST every output is one float32 fmaf chain in the product's k
+// order. At a lowered precision (PREC_BF16X3 or PREC_DEFAULT) the operands
+// are split on the fly as they are read: a matrix entry costs two roundings
+// and a subtraction, a vector entry the same where it is gathered, or
+// nothing where the loop split it into a packed word once per product
+// (pack_split). Every output then keeps its float32 accumulators (Acc:
+// three at bf16x3), each one fmaf chain in the product's k order; products
+// of bf16 values are exact in float32. The lowered sparse loops are not
+// unrolled: unrolled, the bf16x3 resident instantiation spilled.
+
+// x rounded to bfloat16, nearest even (the reference's astype(bfloat16)),
+// as a float
+static __device__ __forceinline__ float bf16_rn(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// highest: hi = x, lo = 0; bf16x3: hi = bf16(x), lo = bf16(x - hi);
+// default: hi = bf16(x), lo = 0
+template <int PR>
+static __device__ __forceinline__ void bf16_split(float x, float& hi,
+                                                  float& lo) {
+  if constexpr (PR == PREC_HIGHEST) {
+    hi = x;
+    lo = 0.f;
+  } else {
+    hi = bf16_rn(x);
+    lo = PR == PREC_BF16X3 ? bf16_rn(__fsub_rn(x, hi)) : 0.f;
+  }
+}
+
+// the split of x in one 32-bit word: hi's 16 high bits, then lo's (both
+// are bf16 values: their low 16 bits are zero); read back by
+// unpack_split. At PREC_HIGHEST, x itself.
+template <int PR>
+static __device__ __forceinline__ float pack_split(float x) {
+  if constexpr (PR == PREC_HIGHEST) return x;
+  float hi, lo;
+  bf16_split<PR>(x, hi, lo);
+  return __uint_as_float((__float_as_uint(hi) & 0xffff0000u) |
+                         (__float_as_uint(lo) >> 16));
+}
+
+static __device__ __forceinline__ void unpack_split(float w, float& hi,
+                                                    float& lo) {
+  const unsigned u = __float_as_uint(w);
+  hi = __uint_as_float(u & 0xffff0000u);
+  lo = __uint_as_float(u << 16);
+}
+
+// The accumulator of one output at PR. At PREC_HIGHEST, hh alone: one
+// float32 fmaf chain. At bf16x3, hh, hl, lh = v_hi M_hi, v_hi M_lo,
+// v_lo M_hi, combined as hh + (hl + lh), the reference's association,
+// pinned; at default, hh alone over the rounded operands.
+template <int PR>
+struct Acc {
+  float hh = 0.f, hl = 0.f, lh = 0.f;
+  // v split as (vh, vl), the matrix entry m split here
+  __device__ __forceinline__ void add(float vh, float vl, float m) {
+    float mh, ml;
+    bf16_split<PR>(m, mh, ml);
+    hh = fmaf(vh, mh, hh);
+    if (PR == PREC_BF16X3) {
+      hl = fmaf(vh, ml, hl);
+      lh = fmaf(vl, mh, lh);
+    }
+  }
+  // both operands split here
+  __device__ __forceinline__ void add(float v, float m) {
+    float vh, vl;
+    bf16_split<PR>(v, vh, vl);
+    add(vh, vl, m);
+  }
+  // this chain's sum with another's (this + o, per accumulator)
+  __device__ __forceinline__ void merge(const Acc& o) {
+    hh = __fadd_rn(hh, o.hh);
+    hl = __fadd_rn(hl, o.hl);
+    lh = __fadd_rn(lh, o.lh);
+  }
+  // the xor tree 16, 8, .., 1 over a warp's lanes, per accumulator
+  __device__ __forceinline__ void warp_sum() {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      hh += __shfl_xor_sync(FULL, hh, off);
+      if (PR == PREC_BF16X3) {
+        hl += __shfl_xor_sync(FULL, hl, off);
+        lh += __shfl_xor_sync(FULL, lh, off);
+      }
+    }
+  }
+  __device__ __forceinline__ float sum() const {
+    return PR == PREC_BF16X3 ? __fadd_rn(hh, __fadd_rn(hl, lh)) : hh;
+  }
+};
+
+// The v.M products' two row groups, merged as group 0's + group 1's, per
+// accumulator: at PREC_HIGHEST as the dense kernels did, both groups' sums
+// through part; at a lowered precision group 1's (two floats a column, in
+// two rounds at bf16x3). Every thread calls it; group 0 ends with the
+// merged sums.
+template <int PR>
+static __device__ __forceinline__ void merge_groups(Acc<PR>& a,
+                                                    float* part) {
+  static_assert(GSPLIT == 2, "two row groups");
+  const int g = threadIdx.x / 256, jl = threadIdx.x % 256;
+  if constexpr (PR == PREC_HIGHEST) {
+    part[g * 256 + jl] = a.hh;
+    __syncthreads();
+    a.hh = part[jl] + part[256 + jl];
+    return;
+  }
+  if (g == 1) {
+    part[jl] = a.hh;
+    part[256 + jl] = a.hl;
+  }
+  __syncthreads();
+  if (g == 0) {
+    a.hh = __fadd_rn(a.hh, part[jl]);
+    a.hl = __fadd_rn(a.hl, part[256 + jl]);
+  }
+  if (PR == PREC_BF16X3) {
+    __syncthreads();
+    if (g == 1) part[jl] = a.lh;
+    __syncthreads();
+    if (g == 0) a.lh = __fadd_rn(a.lh, part[jl]);
+  }
+}
 
 // out[j] = sum_i v[i] M[i*C + j]   (v.M, C <= any; rows split in GSPLIT)
-static __device__ __forceinline__ void vecmat(const float* v, const float* M, int R, int C,
-                              float* out, float* part) {
+template <int PR>
+static __device__ __forceinline__ void vecmat(const float* v, const float* M,
+                                              int R, int C, float* out,
+                                              float* part) {
   const int g = threadIdx.x / 256, jl = threadIdx.x % 256;
   const int i0 = (R * g) / GSPLIT, i1 = (R * (g + 1)) / GSPLIT;
   for (int j0 = 0; j0 < C; j0 += 256) {
     const int j = j0 + jl;
-    float acc = 0.f;
+    Acc<PR> a;
     if (j < C) {
       const float* col = M + j;
-#pragma unroll 8
-      for (int i = i0; i < i1; ++i) acc = fmaf(v[i], col[(size_t)i * C], acc);
+#pragma unroll (PR == PREC_HIGHEST ? 8 : 4)
+      for (int i = i0; i < i1; ++i) a.add(v[i], col[(size_t)i * C]);
     }
-    part[g * 256 + jl] = acc;
-    __syncthreads();
-    if (g == 0 && j < C) {
-      float s = part[jl];
-      for (int gg = 1; gg < GSPLIT; ++gg) s += part[gg * 256 + jl];
-      out[j] = s;
-    }
+    merge_groups(a, part);
+    if (g == 0 && j < C) out[j] = a.sum();
     __syncthreads();
   }
 }
 
 // v.M for M in shared memory, epi(j, (v.M)[j]), in vecmat's order and
-// bits: one thread per column over GSPLIT row groups, v (16-byte aligned)
-// read as float4 between the groups' scalar ends; neighbouring threads
-// read neighbouring words of M (no bank conflicts)
-template <class Epi>
+// bits: one thread per column over GSPLIT row groups; neighbouring threads
+// read neighbouring words of M (no bank conflicts). At PREC_HIGHEST v
+// (16-byte aligned) is read as float4 between the groups' scalar ends; at
+// a lowered precision v holds packed splits (pack_split), read one entry
+// at a time (with four in flight, read as a float4, the bf16x3
+// instantiation spilled: -Xptxas -v).
+template <int PR, class Epi>
 static __device__ __forceinline__ void vecmat4(const float* v,
                                                const float* M, int R, int C,
                                                float* part, Epi epi) {
@@ -455,44 +581,47 @@ static __device__ __forceinline__ void vecmat4(const float* v,
   const int i0 = (R * g) / GSPLIT, i1 = (R * (g + 1)) / GSPLIT;
   for (int j0 = 0; j0 < C; j0 += 256) {
     const int j = j0 + jl;
-    float acc = 0.f;
+    Acc<PR> a;
     if (j < C) {
       const float* col = M + j;
-      int i = i0;
-      for (; (i & 3) && i < i1; ++i) acc = fmaf(v[i], col[(size_t)i * C], acc);
+      if constexpr (PR == PREC_HIGHEST) {
+        int i = i0;
+        for (; (i & 3) && i < i1; ++i) a.add(v[i], col[(size_t)i * C]);
 #pragma unroll 4
-      for (; i + 4 <= i1; i += 4) {
-        const float4 w = *reinterpret_cast<const float4*>(v + i);
-        acc = fmaf(w.x, col[(size_t)i * C], acc);
-        acc = fmaf(w.y, col[(size_t)(i + 1) * C], acc);
-        acc = fmaf(w.z, col[(size_t)(i + 2) * C], acc);
-        acc = fmaf(w.w, col[(size_t)(i + 3) * C], acc);
+        for (; i + 4 <= i1; i += 4) {
+          const float4 w = *reinterpret_cast<const float4*>(v + i);
+          a.add(w.x, col[(size_t)i * C]);
+          a.add(w.y, col[(size_t)(i + 1) * C]);
+          a.add(w.z, col[(size_t)(i + 2) * C]);
+          a.add(w.w, col[(size_t)(i + 3) * C]);
+        }
+        for (; i < i1; ++i) a.add(v[i], col[(size_t)i * C]);
+      } else {
+        float vh, vl;
+        for (int i = i0; i < i1; ++i) {
+          unpack_split(v[i], vh, vl);
+          a.add(vh, vl, col[(size_t)i * C]);
+        }
       }
-      for (; i < i1; ++i) acc = fmaf(v[i], col[(size_t)i * C], acc);
     }
-    part[g * 256 + jl] = acc;
-    __syncthreads();
-    if (g == 0 && j < C) {
-      float s = part[jl];
-      for (int gg = 1; gg < GSPLIT; ++gg) s += part[gg * 256 + jl];
-      epi(j, s);
-    }
+    merge_groups(a, part);
+    if (g == 0 && j < C) epi(j, a.sum());
     __syncthreads();
   }
 }
 
-// out[i] = sum_j M[i*C + j] v[j]   (M v: one warp per row)
-static __device__ __forceinline__ void matvec(const float* M, const float* v, int R, int C,
-                              float* out) {
+// out[i] = sum_j M[i*C + j] v[j]   (M v: one warp per row, lane = column
+// mod 32, then the xor tree)
+template <int PR>
+static __device__ __forceinline__ void matvec(const float* M, const float* v,
+                                              int R, int C, float* out) {
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int i = w; i < R; i += NT / 32) {
     const float* row = M + (size_t)i * C;
-    float acc = 0.f;
-    for (int j = lane; j < C; j += 32) acc = fmaf(row[j], v[j], acc);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(FULL, acc, off);
-    if (lane == 0) out[i] = acc;
+    Acc<PR> a;
+    for (int j = lane; j < C; j += 32) a.add(v[j], row[j]);
+    a.warp_sum();
+    if (lane == 0) out[i] = a.sum();
   }
   __syncthreads();
 }
@@ -545,319 +674,102 @@ static __device__ __forceinline__ float row_dot(const float* val,
 #undef RD_ADD
 #undef RD_LANES
 
-// Column k0..k1 of a CSC, (v.M)_j, in vecmat's order: rows below half and
-// from half on summed apart, in row order, then added.
-template <class Gth>
+// Column k0..k1 of a CSC, (v.M)_j, in vecmat's order: the rows below half
+// and from half on summed apart, in row order, then added. At
+// PREC_HIGHEST one loop picks each entry's chain by its row; at a lowered
+// precision two loops (each column's rows are sorted).
+template <int PR, class Gth>
 static __device__ __forceinline__ float col_dot(const float* val,
                                                 const short* idx, int k0,
                                                 int k1, int half,
                                                 Gth gather) {
-  float a0 = 0.f, a1 = 0.f;
-  for (int k = k0; k < k1; ++k) {
-    const int i = idx[k];
-    const float t = fmaf(gather(i), val[k], i < half ? a0 : a1);
-    if (i < half) a0 = t;
-    else a1 = t;
+  Acc<PR> a0, a1;
+  if constexpr (PR == PREC_HIGHEST) {
+    for (int k = k0; k < k1; ++k) {
+      const int i = idx[k];
+      const float t = fmaf(gather(i), val[k], i < half ? a0.hh : a1.hh);
+      if (i < half) a0.hh = t;
+      else a1.hh = t;
+    }
+  } else {
+    int k = k0;
+#pragma unroll 1
+    for (; k < k1 && idx[k] < half; ++k) a0.add(gather(idx[k]), val[k]);
+#pragma unroll 1
+    for (; k < k1; ++k) a1.add(gather(idx[k]), val[k]);
   }
-  return a0 + a1;
+  a0.merge(a1);
+  return a0.sum();
 }
 
 // One pass over the rows of the CSR set r: e(i, (A x)_i) with entries
 // gathered by g, a thread per row, the listed long rows a warp each (from
-// the last warp down, the ones the short rows leave idle). Ends with a
-// __syncthreads.
-template <class G, class E>
+// the last warp down, the ones the short rows leave idle). At
+// PREC_HIGHEST in matvec's order (row_dot; a long row's warp loads 32
+// entries at a time, each going by shuffles, in order, to lane = column
+// mod 32); at a lowered precision a short row sums its entries in column
+// order, and a long row's lane = entry mod 32. Then the xor tree. Ends
+// with a __syncthreads.
+template <int PR, class G, class E>
 static __device__ __forceinline__ void rows_pass(const SegSet r, G g, E e) {
   const int tid = threadIdx.x;
   for (int i = tid; i < r.S; i += NT) {
     const int k0 = r.ptr[i], k1 = r.ptr[i + 1];
-    if (r.nlong == 0 || k1 - k0 <= LONG_ROW)
-      e(i, row_dot(r.val, r.idx, k0, k1, g));
+    if (r.nlong == 0 || k1 - k0 <= LONG_ROW) {
+      if constexpr (PR == PREC_HIGHEST) {
+        e(i, row_dot(r.val, r.idx, k0, k1, g));
+      } else {
+        Acc<PR> a;
+#pragma unroll 1
+        for (int k = k0; k < k1; ++k) a.add(g(r.idx[k]), r.val[k]);
+        e(i, a.sum());
+      }
+    }
   }
-  // a long row: the warp loads 32 entries at a time, and each goes by
-  // shuffles, in order, to lane (column mod 32), as in matvec
   const int w = NT / 32 - 1 - (tid >> 5), lane = tid & 31;
   for (int q = w; q < r.nlong; q += NT / 32) {
     const int i = r.lng[q], k1 = r.ptr[i + 1];
-    float acc = 0.f;
-    for (int kb = r.ptr[i]; kb < k1; kb += 32) {
-      const int k = kb + lane;
-      const int ck = k < k1 ? r.idx[k] : 0;
-      const float ak = k < k1 ? r.val[k] : 0.f, bk = k < k1 ? g(ck) : 0.f;
-      for (int t = 0; t < min(32, k1 - kb); ++t) {
-        const int c = __shfl_sync(FULL, ck, t);
-        const float a = __shfl_sync(FULL, ak, t);
-        const float b = __shfl_sync(FULL, bk, t);
-        if ((c & 31) == lane) acc = fmaf(a, b, acc);
+    Acc<PR> a;
+    if constexpr (PR == PREC_HIGHEST) {
+      for (int kb = r.ptr[i]; kb < k1; kb += 32) {
+        const int k = kb + lane;
+        const int ck = k < k1 ? r.idx[k] : 0;
+        const float ak = k < k1 ? r.val[k] : 0.f, bk = k < k1 ? g(ck) : 0.f;
+        for (int t = 0; t < min(32, k1 - kb); ++t) {
+          const int c = __shfl_sync(FULL, ck, t);
+          const float av = __shfl_sync(FULL, ak, t);
+          const float bv = __shfl_sync(FULL, bk, t);
+          if ((c & 31) == lane) a.add(bv, av);
+        }
       }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(FULL, acc, off);
-    if (lane == 0) e(i, acc);
-  }
-  __syncthreads();
-}
-
-// One pass over the columns of the CSC set c: e(j, (v.M)_j) with entries
-// gathered by g, a thread per column. Ends with a __syncthreads.
-template <class G, class E>
-static __device__ __forceinline__ void cols_pass(const SegSet c, G g, E e) {
-  for (int j = threadIdx.x; j < c.S; j += NT)
-    e(j, col_dot(c.val, c.idx, c.ptr[j], c.ptr[j + 1], c.half, g));
-  __syncthreads();
-}
-
-// The same over two CSC sets of equal width: e(j, (v1.M1)_j, (v2.M2)_j).
-template <class G1, class G2, class E>
-static __device__ __forceinline__ void cols_pass2(const SegSet c1, G1 g1,
-                                                  const SegSet c2, G2 g2,
-                                                  E e) {
-  for (int j = threadIdx.x; j < c1.S; j += NT)
-    e(j, col_dot(c1.val, c1.idx, c1.ptr[j], c1.ptr[j + 1], c1.half, g1),
-      col_dot(c2.val, c2.idx, c2.ptr[j], c2.ptr[j + 1], c2.half, g2));
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// the iteration's products at a lowered precision (PR = PREC_BF16X3 or
-// PREC_DEFAULT), split on the fly as the operands are read: a matrix entry
-// costs two roundings and a subtraction, a vector entry the same where it
-// is gathered, or nothing where the loop split it into a packed word once
-// per product (pack_split). Every output keeps its float32 accumulators
-// (Acc3), each one fmaf chain in the product's k order; products of bf16
-// values are exact in float32. The sparse passes' loops are not unrolled:
-// unrolled, the bf16x3 resident instantiation spilled (-Xptxas -v).
-// ---------------------------------------------------------------------------
-
-// x rounded to bfloat16, nearest even (the reference's astype(bfloat16)),
-// as a float
-static __device__ __forceinline__ float bf16_rn(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// bf16x3: hi = bf16(x), lo = bf16(x - hi); default: hi = bf16(x), lo = 0
-template <int PR>
-static __device__ __forceinline__ void bf16_split(float x, float& hi,
-                                                  float& lo) {
-  hi = bf16_rn(x);
-  lo = PR == PREC_BF16X3 ? bf16_rn(__fsub_rn(x, hi)) : 0.f;
-}
-
-// the split of x in one 32-bit word: hi's 16 high bits, then lo's (both
-// are bf16 values: their low 16 bits are zero); read back by
-// unpack_split
-template <int PR>
-static __device__ __forceinline__ float pack_split(float x) {
-  float hi, lo;
-  bf16_split<PR>(x, hi, lo);
-  return __uint_as_float((__float_as_uint(hi) & 0xffff0000u) |
-                         (__float_as_uint(lo) >> 16));
-}
-
-static __device__ __forceinline__ void unpack_split(float w, float& hi,
-                                                    float& lo) {
-  const unsigned u = __float_as_uint(w);
-  hi = __uint_as_float(u & 0xffff0000u);
-  lo = __uint_as_float(u << 16);
-}
-
-// The accumulators of one output: hh, hl, lh = v_hi M_hi, v_hi M_lo,
-// v_lo M_hi (default: hh alone, over the rounded operands), combined as
-// hh + (hl + lh), the reference's association, pinned.
-template <int PR>
-struct Acc3 {
-  float hh = 0.f, hl = 0.f, lh = 0.f;
-  // v split as (vh, vl), the matrix entry m split here
-  __device__ __forceinline__ void add(float vh, float vl, float m) {
-    float mh, ml;
-    bf16_split<PR>(m, mh, ml);
-    hh = fmaf(vh, mh, hh);
-    if (PR == PREC_BF16X3) {
-      hl = fmaf(vh, ml, hl);
-      lh = fmaf(vl, mh, lh);
-    }
-  }
-  // both operands split here
-  __device__ __forceinline__ void add(float v, float m) {
-    float vh, vl;
-    bf16_split<PR>(v, vh, vl);
-    add(vh, vl, m);
-  }
-  // this chain's sum with another's (this + o, per accumulator)
-  __device__ __forceinline__ void merge(const Acc3& o) {
-    hh = __fadd_rn(hh, o.hh);
-    hl = __fadd_rn(hl, o.hl);
-    lh = __fadd_rn(lh, o.lh);
-  }
-  // the xor tree of matvec over a warp's lanes, per accumulator
-  __device__ __forceinline__ void warp_sum() {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      hh += __shfl_xor_sync(FULL, hh, off);
-      if (PR == PREC_BF16X3) {
-        hl += __shfl_xor_sync(FULL, hl, off);
-        lh += __shfl_xor_sync(FULL, lh, off);
-      }
-    }
-  }
-  __device__ __forceinline__ float sum() const {
-    return PR == PREC_BF16X3 ? __fadd_rn(hh, __fadd_rn(hl, lh)) : hh;
-  }
-};
-
-// The v.M products' two row groups, merged as vecmat adds its partials
-// (group 0's + group 1's, per accumulator): group 1 hands its sums to
-// group 0 through part (two floats a column), in two rounds at bf16x3.
-// Every thread calls it; group 0 ends with the merged sums.
-template <int PR>
-static __device__ __forceinline__ void merge_groups(Acc3<PR>& a,
-                                                    float* part) {
-  static_assert(GSPLIT == 2, "two row groups");
-  const int g = threadIdx.x / 256, jl = threadIdx.x % 256;
-  if (g == 1) {
-    part[jl] = a.hh;
-    part[256 + jl] = a.hl;
-  }
-  __syncthreads();
-  if (g == 0) {
-    a.hh = __fadd_rn(a.hh, part[jl]);
-    a.hl = __fadd_rn(a.hl, part[256 + jl]);
-  }
-  if (PR == PREC_BF16X3) {
-    __syncthreads();
-    if (g == 1) part[jl] = a.lh;
-    __syncthreads();
-    if (g == 0) a.lh = __fadd_rn(a.lh, part[jl]);
-  }
-}
-
-// vecmat at PR: v (shared, float32) split as it is read
-template <int PR>
-static __device__ __forceinline__ void vecmat_lp(const float* v,
-                                                 const float* M, int R,
-                                                 int C, float* out,
-                                                 float* part) {
-  const int g = threadIdx.x / 256, jl = threadIdx.x % 256;
-  const int i0 = (R * g) / GSPLIT, i1 = (R * (g + 1)) / GSPLIT;
-  for (int j0 = 0; j0 < C; j0 += 256) {
-    const int j = j0 + jl;
-    Acc3<PR> a;
-    if (j < C) {
-      const float* col = M + j;
-#pragma unroll 4
-      for (int i = i0; i < i1; ++i) a.add(v[i], col[(size_t)i * C]);
-    }
-    merge_groups(a, part);
-    if (g == 0 && j < C) out[j] = a.sum();
-    __syncthreads();
-  }
-}
-
-// vecmat4 at PR: vw holds v's packed splits (pack_split), M in shared
-// memory; one entry at a time (with four in flight, read as a float4, the
-// bf16x3 instantiation spilled: -Xptxas -v)
-template <int PR, class Epi>
-static __device__ __forceinline__ void vecmat4_lp(const float* vw,
-                                                  const float* M, int R,
-                                                  int C, float* part,
-                                                  Epi epi) {
-  const int g = threadIdx.x / 256, jl = threadIdx.x % 256;
-  const int i0 = (R * g) / GSPLIT, i1 = (R * (g + 1)) / GSPLIT;
-  for (int j0 = 0; j0 < C; j0 += 256) {
-    const int j = j0 + jl;
-    Acc3<PR> a;
-    if (j < C) {
-      const float* col = M + j;
-      float vh, vl;
-      for (int i = i0; i < i1; ++i) {
-        unpack_split(vw[i], vh, vl);
-        a.add(vh, vl, col[(size_t)i * C]);
-      }
-    }
-    merge_groups(a, part);
-    if (g == 0 && j < C) epi(j, a.sum());
-    __syncthreads();
-  }
-}
-
-// matvec at PR: one warp per row, lane = column mod 32, then the xor tree
-template <int PR>
-static __device__ __forceinline__ void matvec_lp(const float* M,
-                                                 const float* v, int R,
-                                                 int C, float* out) {
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = w; i < R; i += NT / 32) {
-    const float* row = M + (size_t)i * C;
-    Acc3<PR> a;
-    for (int j = lane; j < C; j += 32) a.add(v[j], row[j]);
-    a.warp_sum();
-    if (lane == 0) out[i] = a.sum();
-  }
-  __syncthreads();
-}
-
-// rows_pass at PR: a thread per row summing its entries in column order,
-// a warp per listed long row (lane = entry mod 32, then the xor tree)
-template <int PR, class G, class E>
-static __device__ __forceinline__ void rows_pass_lp(const SegSet r, G g,
-                                                    E e) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < r.S; i += NT) {
-    const int k0 = r.ptr[i], k1 = r.ptr[i + 1];
-    if (r.nlong == 0 || k1 - k0 <= LONG_ROW) {
-      Acc3<PR> a;
+    } else {
 #pragma unroll 1
-      for (int k = k0; k < k1; ++k) a.add(g(r.idx[k]), r.val[k]);
-      e(i, a.sum());
+      for (int k = r.ptr[i] + lane; k < k1; k += 32)
+        a.add(g(r.idx[k]), r.val[k]);
     }
-  }
-  const int w = NT / 32 - 1 - (tid >> 5), lane = tid & 31;
-  for (int q = w; q < r.nlong; q += NT / 32) {
-    const int i = r.lng[q];
-    Acc3<PR> a;
-#pragma unroll 1
-    for (int k = r.ptr[i] + lane; k < r.ptr[i + 1]; k += 32)
-      a.add(g(r.idx[k]), r.val[k]);
     a.warp_sum();
     if (lane == 0) e(i, a.sum());
   }
   __syncthreads();
 }
 
-// col_dot at PR: the rows below half and from half on (each column's rows
-// are sorted) summed apart, then merged
-template <int PR, class Gth>
-static __device__ __forceinline__ float col_dot_lp(const float* val,
-                                                   const short* idx, int k0,
-                                                   int k1, int half,
-                                                   Gth gather) {
-  Acc3<PR> a0, a1;
-  int k = k0;
-#pragma unroll 1
-  for (; k < k1 && idx[k] < half; ++k) a0.add(gather(idx[k]), val[k]);
-#pragma unroll 1
-  for (; k < k1; ++k) a1.add(gather(idx[k]), val[k]);
-  a0.merge(a1);
-  return a0.sum();
-}
-
+// One pass over the columns of the CSC set c: e(j, (v.M)_j) with entries
+// gathered by g, a thread per column. Ends with a __syncthreads.
 template <int PR, class G, class E>
-static __device__ __forceinline__ void cols_pass_lp(const SegSet c, G g,
-                                                    E e) {
+static __device__ __forceinline__ void cols_pass(const SegSet c, G g, E e) {
   for (int j = threadIdx.x; j < c.S; j += NT)
-    e(j, col_dot_lp<PR>(c.val, c.idx, c.ptr[j], c.ptr[j + 1], c.half, g));
+    e(j, col_dot<PR>(c.val, c.idx, c.ptr[j], c.ptr[j + 1], c.half, g));
   __syncthreads();
 }
 
+// The same over two CSC sets of equal width: e(j, (v1.M1)_j, (v2.M2)_j).
 template <int PR, class G1, class G2, class E>
-static __device__ __forceinline__ void cols_pass2_lp(const SegSet c1, G1 g1,
-                                                     const SegSet c2, G2 g2,
-                                                     E e) {
+static __device__ __forceinline__ void cols_pass2(const SegSet c1, G1 g1,
+                                                  const SegSet c2, G2 g2,
+                                                  E e) {
   for (int j = threadIdx.x; j < c1.S; j += NT)
-    e(j,
-      col_dot_lp<PR>(c1.val, c1.idx, c1.ptr[j], c1.ptr[j + 1], c1.half, g1),
-      col_dot_lp<PR>(c2.val, c2.idx, c2.ptr[j], c2.ptr[j + 1], c2.half, g2));
+    e(j, col_dot<PR>(c1.val, c1.idx, c1.ptr[j], c1.ptr[j + 1], c1.half, g1),
+      col_dot<PR>(c2.val, c2.idx, c2.ptr[j], c2.ptr[j + 1], c2.half, g2));
   __syncthreads();
 }
 
@@ -872,29 +784,26 @@ struct DenseOps {
   int n, m;
   template <int PR = PREC_HIGHEST>
   __device__ void Av(const float* x, float* out) const {
-    if constexpr (PR == PREC_HIGHEST) matvec(A, x, m, n, out);
-    else matvec_lp<PR>(A, x, m, n, out);
+    matvec<PR>(A, x, m, n, out);
   }
   template <int PR = PREC_HIGHEST>
   __device__ void vA(const float* v, float* out, float* part) const {
-    if constexpr (PR == PREC_HIGHEST) vecmat(v, A, m, n, out, part);
-    else vecmat_lp<PR>(v, A, m, n, out, part);
+    vecmat<PR>(v, A, m, n, out, part);
   }
   template <int PR = PREC_HIGHEST>
   __device__ void vP(const float* v, float* out, float* part) const {
-    if constexpr (PR == PREC_HIGHEST) vecmat(v, P, n, n, out, part);
-    else vecmat_lp<PR>(v, P, n, n, out, part);
+    vecmat<PR>(v, P, n, n, out, part);
   }
   template <int PR = PREC_HIGHEST>
   __device__ void vK(const float* v, float* out, float* part) const {
-    if constexpr (PR == PREC_HIGHEST) vecmat(v, K, n, n, out, part);
-    else vecmat_lp<PR>(v, K, n, n, out, part);
+    vecmat<PR>(v, K, n, n, out, part);
   }
 };
 
 // resident: Kinv dense in the shared slot, A and P compressed beside it
 // (ar: A's rows, ac: A's columns, pc: P's columns); every product has the
-// dense kernels' summation order, so both layouts give the same bits
+// dense kernels' summation order, so both layouts give the same bits.
+// These are the checks' products; one_iter calls the passes itself.
 struct SparseOps {
   SegSet ar, ac, pc;
   const float* K;
@@ -904,16 +813,16 @@ struct SparseOps {
         pc{s.pcp, s.ci, nullptr, s.cv, n, n / GSPLIT, 0},
         K(K_) {}
   __device__ void Av(const float* x, float* out) const {
-    rows_pass(ar, [=](int j) { return x[j]; },
-              [=](int i, float v) { out[i] = v; });
+    rows_pass<PREC_HIGHEST>(ar, [=](int j) { return x[j]; },
+                            [=](int i, float v) { out[i] = v; });
   }
   __device__ void vA(const float* v, float* out, float*) const {
-    cols_pass(ac, [=](int i) { return v[i]; },
-              [=](int j, float w) { out[j] = w; });
+    cols_pass<PREC_HIGHEST>(ac, [=](int i) { return v[i]; },
+                            [=](int j, float w) { out[j] = w; });
   }
   __device__ void vP(const float* v, float* out, float*) const {
-    cols_pass(pc, [=](int i) { return v[i]; },
-              [=](int j, float w) { out[j] = w; });
+    cols_pass<PREC_HIGHEST>(pc, [=](int i) { return v[i]; },
+                            [=](int j, float w) { out[j] = w; });
   }
 };
 
@@ -1025,10 +934,11 @@ static __device__ __forceinline__ void one_iter(const QPParams& p, Ctx& c, const
 // same arithmetic and bits): A'(rho z - y) with rhs as its epilogue;
 // rhs.Kinv; rho A xt; xt.P and A'(rho A xt) in one pass with the
 // refinement residual; xt += (.).Kinv; then A xt with the z, y updates (x
-// beside it). At a lowered PR the passes are the *_lp ones, and the
-// epilogues that make the two .Kinv products' vectors (rhs, the
-// refinement residual) also write their packed splits into tn2, which
-// this layout's iteration leaves free.
+// beside it). The two .Kinv products read their vector as vr, vt: at
+// PREC_HIGHEST rhs and the refinement residual (tn1) themselves; at a
+// lowered PR their packed splits (pack_split), which the epilogues that
+// make the vectors write into tn2, which this layout's iteration leaves
+// free.
 template <int PR>
 static __device__ __forceinline__ void one_iter(const QPParams& p, Ctx& c,
                                                 const SparseOps& op) {
@@ -1038,65 +948,35 @@ static __device__ __forceinline__ void one_iter(const QPParams& p, Ctx& c,
   float *x = c.x, *xt = c.xt, *rhs = c.rhs, *tn1 = c.tn1, *tm1 = c.tm1,
         *z = c.z, *y = c.y;
   const float *q = c.q, *rho = c.rho, *rinv = c.rinv, *l = c.l, *u = c.u;
+  float* vr = PR == PREC_HIGHEST ? rhs : c.tn2;
+  float* vt = PR == PREC_HIGHEST ? tn1 : c.tn2;
   PHASE_START
-  if constexpr (PR != PREC_HIGHEST) {
-    float* vw = c.tn2;
-    cols_pass_lp<PR>(op.ac, [=](int i) { return rho[i] * z[i] - y[i]; },
-                     [=](int j, float s) {
-                       const float r = sigma * x[j] - q[j] + s;
-                       rhs[j] = r;
-                       vw[j] = pack_split<PR>(r);
-                     });
-    PHASE(PH_VA)
-    vecmat4_lp<PR>(vw, op.K, n, n, c.part,
-                   [=](int j, float s) { xt[j] = s; });
-    PHASE(PH_VK)
-    for (int r = 0; r < p.refine_steps; ++r) {
-      rows_pass_lp<PR>(op.ar, [=](int j) { return xt[j]; },
-                       [=](int i, float s) { tm1[i] = s * rho[i]; });
-      PHASE(PH_AV)
-      cols_pass2_lp<PR>(op.pc, [=](int i) { return xt[i]; }, op.ac,
-                        [=](int i) { return tm1[i]; },
-                        [=](int j, float px, float s) {
-                          const float t = rhs[j] - ((px + sigma * xt[j]) + s);
-                          tn1[j] = t;
-                          vw[j] = pack_split<PR>(t);
-                        });
-      PHASE(PH_VP_VA)
-      vecmat4_lp<PR>(vw, op.K, n, n, c.part,
-                     [=](int j, float s) { xt[j] += s; });
-      PHASE(PH_VK)
-    }
-    for (int j = tid; j < n; j += NT) x[j] = alpha * xt[j] + oma * x[j];
-    rows_pass_lp<PR>(op.ar, [=](int j) { return xt[j]; },
-                     [=](int i, float s) {
-                       const float zrel = alpha * s + oma * z[i];
-                       const float zn = clipf(zrel + y[i] * rinv[i], l[i], u[i]);
-                       y[i] = y[i] + rho[i] * (zrel - zn);
-                       z[i] = zn;
-                     });
-    PHASE(PH_AV_UPDATE)
-    return;
-  }
-  cols_pass(op.ac, [=](int i) { return rho[i] * z[i] - y[i]; },
-            [=](int j, float s) { rhs[j] = sigma * x[j] - q[j] + s; });
+  cols_pass<PR>(op.ac, [=](int i) { return rho[i] * z[i] - y[i]; },
+                [=](int j, float s) {
+                  const float r = sigma * x[j] - q[j] + s;
+                  rhs[j] = r;
+                  vr[j] = pack_split<PR>(r);
+                });
   PHASE(PH_VA)
-  vecmat4(rhs, op.K, n, n, c.part, [=](int j, float s) { xt[j] = s; });
+  vecmat4<PR>(vr, op.K, n, n, c.part, [=](int j, float s) { xt[j] = s; });
   PHASE(PH_VK)
   for (int r = 0; r < p.refine_steps; ++r) {
-    rows_pass(op.ar, [=](int j) { return xt[j]; },
-              [=](int i, float s) { tm1[i] = s * rho[i]; });
+    rows_pass<PR>(op.ar, [=](int j) { return xt[j]; },
+                  [=](int i, float s) { tm1[i] = s * rho[i]; });
     PHASE(PH_AV)
-    cols_pass2(op.pc, [=](int i) { return xt[i]; }, op.ac,
-               [=](int i) { return tm1[i]; }, [=](int j, float px, float s) {
-                 tn1[j] = rhs[j] - ((px + sigma * xt[j]) + s);
-               });
+    cols_pass2<PR>(op.pc, [=](int i) { return xt[i]; }, op.ac,
+                   [=](int i) { return tm1[i]; },
+                   [=](int j, float px, float s) {
+                     const float t = rhs[j] - ((px + sigma * xt[j]) + s);
+                     tn1[j] = t;
+                     vt[j] = pack_split<PR>(t);
+                   });
     PHASE(PH_VP_VA)
-    vecmat4(tn1, op.K, n, n, c.part, [=](int j, float s) { xt[j] += s; });
+    vecmat4<PR>(vt, op.K, n, n, c.part, [=](int j, float s) { xt[j] += s; });
     PHASE(PH_VK)
   }
   for (int j = tid; j < n; j += NT) x[j] = alpha * xt[j] + oma * x[j];
-  rows_pass(op.ar, [=](int j) { return xt[j]; }, [=](int i, float s) {
+  rows_pass<PR>(op.ar, [=](int j) { return xt[j]; }, [=](int i, float s) {
     const float zrel = alpha * s + oma * z[i];
     const float zn = clipf(zrel + y[i] * rinv[i], l[i], u[i]);
     y[i] = y[i] + rho[i] * (zrel - zn);

@@ -414,17 +414,11 @@ def _rescue_kinv(P, A, Kinv, kinv_pad, rho, sigma: float, s: float,
     Newton-Schulz inverse, with the 128-pad block carried as a scalar
     (``kinv_pad``: the pad scalar of the incoming Kinv)."""
     Bsz, n, _ = P.shape
-    dt, dev = P.dtype, P.device
     n_pad = _n_pad(n)
-    eye = torch.eye(n, dtype=dt, device=dev)
+    eye = torch.eye(n, dtype=P.dtype, device=P.device)
     Arho = A * rho[:, :, None]
     K2 = (A.transpose(1, 2) @ Arho) * s + P + sigma * eye
-    dg = 1.0 / torch.clamp(torch.diagonal(K2, dim1=1, dim2=2), min=1e-12)
-    Rj = eye - K2 * dg[:, None, :]
-    cj = torch.sqrt((Rj * Rj).sum((1, 2)))
-    cjm = torch.clamp(cj, min=1.0)
-    Xj = (eye * dg[:, None, :]) / cjm[:, None, None]
-    xj_pad = 1.0 / cjm
+    Xj, xj_pad = jacobi_start(K2)
     # warm test on Kinv / s: the pad block adds n_pad (1 - kp/s)^2 to the
     # squared Frobenius residual (>= 1 for B1's zero pad block, so the
     # padded test never passes there)
@@ -441,36 +435,63 @@ def _rescue_kinv(P, A, Kinv, kinv_pad, rho, sigma: float, s: float,
     else:
         Xi = Xj
     xp_i = torch.where(use_warm, kinv_pad / s, xj_pad)
-
-    def ns_run(X, xp):
-        X, xp = X.clone(), xp.clone()
-        r = torch.full((Bsz,), math.inf, dtype=dt, device=dev)
-        it = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
-        while True:
-            act = (r > ns_tol) & (it < ns_max_iters)
-            if not bool(act.any()):
-                its.append(it)
-                return X, r, xp
-            R = eye - K2 @ X
-            rmax = R.abs().amax((1, 2))
-            if n_pad:
-                rmax = torch.maximum(rmax, (1.0 - xp).abs())
-            Xn = X + X @ R
-            X = _w(act, Xn, X)
-            r = torch.where(act, rmax, r)
-            xp = torch.where(act, xp + xp * (1.0 - xp), xp)
-            it = it + act.to(torch.int32)
-
-    its = []
-    X1, r1, xp1 = ns_run(Xi, xp_i)
-    bad = ~torch.isfinite(r1) | (r1 > 50 * ns_tol)
-    X2, _, _ = ns_run(_w(bad, Xj, X1), torch.where(bad, xj_pad, xp1))
+    X, _, _, its = ns_two_pass(K2, Xi, xp_i, Xj, xj_pad, ns_tol,
+                               ns_max_iters)
     if tracing.armed():   # what the kernel adds to rescue_work
-        cnt = rescue_work.tensor(dev)
+        cnt = rescue_work.tensor(P.device)
         cnt[0] += Bsz
-        cnt[1] += (its[0] + its[1]).sum().to(torch.int32)
+        cnt[1] += its.sum().to(torch.int32)
         cnt[2] += try_warm.sum().to(torch.int32)
-    return X2
+    return X
+
+
+def jacobi_start(K):
+    """The norm-scaled Jacobi start of the two-pass Newton-Schulz inverse
+    of K (B, n, n) (B1's rescue, B4's prologue): Xj = diag(d) / max(|I - K
+    diag(d)|_F, 1), d = 1 / max(diag K, 1e-12). Returns (Xj, xj_pad), the
+    pad block's scalar 1 / max(|I - K diag(d)|_F, 1)."""
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    dg = 1.0 / torch.clamp(torch.diagonal(K, dim1=1, dim2=2), min=1e-12)
+    Rj = eye - K * dg[:, None, :]
+    cjm = torch.clamp(torch.sqrt((Rj * Rj).sum((1, 2))), min=1.0)
+    return (eye * dg[:, None, :]) / cjm[:, None, None], 1.0 / cjm
+
+
+def _ns_pass(K, X, xp, ns_tol: float, ns_max_iters: int):
+    """One Newton-Schulz pass X <- X + X (I - K X) from r = inf, each lane
+    while max|I - K X| > ``ns_tol`` and it < ``ns_max_iters``; the 128-pad
+    block's scalar xp runs its own sequence and enters max|R| as |1 - xp|.
+    Returns (X, r, xp, it): r is the residual before the last update."""
+    Bsz, n, _ = K.shape
+    eye = torch.eye(n, dtype=K.dtype, device=K.device)
+    r = torch.full((Bsz,), math.inf, dtype=K.dtype, device=K.device)
+    it = torch.zeros((Bsz,), dtype=torch.int32, device=K.device)
+    while True:
+        act = (r > ns_tol) & (it < ns_max_iters)
+        if not bool(act.any()):
+            return X, r, xp, it
+        R = eye - K @ X
+        rmax = R.abs().amax((1, 2))
+        if _n_pad(n):
+            rmax = torch.maximum(rmax, (1.0 - xp).abs())
+        X = _w(act, X + X @ R, X)
+        r = torch.where(act, rmax, r)
+        xp = torch.where(act, xp + xp * (1.0 - xp), xp)
+        it = it + act.to(torch.int32)
+
+
+def ns_two_pass(K, X, xp, Xj, xj_pad, ns_tol: float, ns_max_iters: int):
+    """The two Newton-Schulz passes of B1's rescue and B4's prologue (the
+    kernels' ``ns_run`` twice): a pass from (X, xp), then a second one,
+    from the Jacobi start (Xj, xj_pad) on the lanes whose first pass ended
+    non-finite or above 50 ``ns_tol``, else from where the first ended.
+    Returns (X, r, xp, iters): r the second pass's residual before its
+    last update, iters the iterations of both passes."""
+    X, r1, xp, it1 = _ns_pass(K, X, xp, ns_tol, ns_max_iters)
+    bad = ~torch.isfinite(r1) | (r1 > 50 * ns_tol)
+    X, r, xp, it2 = _ns_pass(K, _w(bad, Xj, X), torch.where(bad, xj_pad, xp),
+                             ns_tol, ns_max_iters)
+    return X, r, xp, it1 + it2
 
 
 class _Params(ctypes.Structure):

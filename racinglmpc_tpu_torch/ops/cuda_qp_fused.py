@@ -20,7 +20,8 @@ Replaces ``racinglmpc_tpu/ops/pallas_qp.py::_kernel_fused`` (through
 This Newton-Schulz is NOT ``ops/qp._ns_inverse``: it has the Frobenius
 warm gate (no power-iteration gate), no divergence exit at r >= 1e6 and no
 final unconditional squaring, and ``ns_resid`` is the residual before the
-last update. The plain version below is written for it alone.
+last update. Its plain version (``cuda_qp.jacobi_start``,
+``cuda_qp.ns_two_pass``) is shared with B1's rescue alone.
 
 Padding: the Pallas kernel pads n to a multiple of 128 with an identity
 pad block in K and a unit pad diagonal in the warm start, so its warm test
@@ -54,7 +55,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from typing import NamedTuple
 
 import torch
@@ -128,47 +128,19 @@ def prologue_plain(P, A, kinv0, warm_ok, rho, *, sigma: float, ns_tol: float,
                    ns_max_iters: int):
     """K build, Jacobi init, warm test and the two Newton-Schulz passes.
     Returns (kinv, ns_resid, kinv_pad, warm, ns_iters)."""
-    f = torch.float32
-    X0 = kinv0.to(f)
-    Bsz, n, _ = P.shape
-    dev = P.device
-    n_pad = cuda_qp._n_pad(n)
-    eye = torch.eye(n, dtype=f, device=dev)
+    X0 = kinv0.to(torch.float32)
     K = build_k(P, A, rho, sigma)
-    dg = 1.0 / torch.clamp(torch.diagonal(K, dim1=1, dim2=2), min=1e-12)
-    Rj = eye - K * dg[:, None, :]
-    cjm = torch.clamp(torch.sqrt((Rj * Rj).sum((1, 2))), min=1.0)
-    Xj = (eye * dg[:, None, :]) / cjm[:, None, None]
-    xj_pad = 1.0 / cjm
-
-    warm = torch.zeros((Bsz,), dtype=torch.bool, device=dev)
+    Xj, xj_pad = cuda_qp.jacobi_start(K)
+    warm = torch.zeros(K.shape[:1], dtype=torch.bool, device=K.device)
     if bool(warm_ok.any()):
-        R0 = eye - K @ X0
+        R0 = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device) - K @ X0
         r0f = torch.sqrt((R0 * R0).sum((1, 2)))
         warm = warm_ok & torch.isfinite(r0f) & (r0f < 0.9)
     X = _w(warm, X0, Xj)
     xp = torch.where(warm, torch.ones_like(xj_pad), xj_pad)
-
-    def ns_run(X, xp):
-        r = torch.full((Bsz,), math.inf, dtype=f, device=dev)
-        it = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
-        while True:
-            act = (r > ns_tol) & (it < ns_max_iters)
-            if not bool(act.any()):
-                return X, r, xp, it
-            R = eye - K @ X
-            rmax = R.abs().amax((1, 2))
-            if n_pad:
-                rmax = torch.maximum(rmax, (1.0 - xp).abs())
-            X = _w(act, X + X @ R, X)
-            r = torch.where(act, rmax, r)
-            xp = torch.where(act, xp + xp * (1.0 - xp), xp)
-            it = it + act.to(torch.int32)
-
-    X, r1, xp, it1 = ns_run(X, xp)
-    bad = ~torch.isfinite(r1) | (r1 > 50 * ns_tol)
-    X, resid, xp, it2 = ns_run(_w(bad, Xj, X), torch.where(bad, xj_pad, xp))
-    return X, resid, xp, warm, it1 + it2
+    X, resid, xp, its = cuda_qp.ns_two_pass(K, X, xp, Xj, xj_pad, ns_tol,
+                                            ns_max_iters)
+    return X, resid, xp, warm, its
 
 
 def admm_iterate_fused_plain(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0,

@@ -19,6 +19,10 @@
   QPs, cold and warm through the returned cache (equal iteration counts
   and cache validity, x to 2e-3, the solver's own eps scale), and the
   precedence of the structured build over the fused kernel.
+- The two-pass Newton-Schulz that B4's plain prologue shares with B1's
+  plain rescue (``cuda_qp.jacobi_start``, ``cuda_qp.ns_two_pass``)
+  against the loop each of them wrote out before they shared it, bit for
+  bit, through both callers.
 
 The Pallas kernel returns no Newton-Schulz counts or warm decision;
 ``_pallas_ns`` replays its prologue (padded arrays, the same jnp
@@ -26,6 +30,7 @@ operations at HIGHEST precision) with counters, and is itself held to the
 kernel's returned Kinv.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -37,8 +42,10 @@ from racinglmpc_tpu.ops import kkt_band as jkb
 from racinglmpc_tpu.ops import pallas_qp
 from racinglmpc_tpu.ops import qp as jqp
 from racinglmpc_tpu.utils.config import SolverConfig as JS
-from racinglmpc_tpu_torch.ops import cuda_qp_fused, kkt_band
+from racinglmpc_tpu_torch.ops import cuda_qp, cuda_qp_fused, kkt_band
 from racinglmpc_tpu_torch.ops import qp as tqp
+from racinglmpc_tpu_torch.runtime import tracing
+from racinglmpc_tpu_torch.utils.batched import lane_where as _w
 from racinglmpc_tpu_torch.utils.config import SolverConfig
 from tests.test_kkt_band import _ftocp_qp
 from tests.test_pallas_qp import _random_qp
@@ -231,3 +238,143 @@ def test_random_qps_follow_the_reference_construction():
     for i, r in enumerate(ref):
         for a, b in zip(r, got):
             np.testing.assert_array_equal(np.asarray(a), b[i].numpy())
+
+
+def _jacobi_start_as_written(K):
+    """The Jacobi start as the rescue and B4's plain prologue each wrote it
+    before ``cuda_qp.jacobi_start``."""
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    dg = 1.0 / torch.clamp(torch.diagonal(K, dim1=1, dim2=2), min=1e-12)
+    Rj = eye - K * dg[:, None, :]
+    cj = torch.sqrt((Rj * Rj).sum((1, 2)))
+    cjm = torch.clamp(cj, min=1.0)
+    Xj = (eye * dg[:, None, :]) / cjm[:, None, None]
+    return Xj, 1.0 / cjm
+
+
+def _two_pass_as_written(K, Xi, xp_i, Xj, xj_pad, ns_tol, ns_max_iters,
+                         seen):
+    """The two Newton-Schulz passes as the rescue and B4's plain prologue
+    each wrote them before ``cuda_qp.ns_two_pass``: per-lane exit, the pad
+    scalar, the 50 ns_tol restart from Jacobi. Appends to ``seen`` which
+    lanes started warm and which restarted."""
+    Bsz, n, _ = K.shape
+    dt, dev = K.dtype, K.device
+    n_pad = cuda_qp._n_pad(n)
+    eye = torch.eye(n, dtype=dt, device=dev)
+    its = []
+
+    def run(X, xp):
+        X, xp = X.clone(), xp.clone()
+        r = torch.full((Bsz,), math.inf, dtype=dt, device=dev)
+        it = torch.zeros((Bsz,), dtype=torch.int32, device=dev)
+        while True:
+            act = (r > ns_tol) & (it < ns_max_iters)
+            if not bool(act.any()):
+                its.append(it)
+                return X, r, xp
+            R = eye - K @ X
+            rmax = R.abs().amax((1, 2))
+            if n_pad:
+                rmax = torch.maximum(rmax, (1.0 - xp).abs())
+            Xn = X + X @ R
+            X = _w(act, Xn, X)
+            r = torch.where(act, rmax, r)
+            xp = torch.where(act, xp + xp * (1.0 - xp), xp)
+            it = it + act.to(torch.int32)
+
+    X1, r1, xp1 = run(Xi, xp_i)
+    bad = ~torch.isfinite(r1) | (r1 > 50 * ns_tol)
+    X2, r2, xp2 = run(_w(bad, Xj, X1), torch.where(bad, xj_pad, xp1))
+    seen.append(dict(warm=(Xi != Xj).flatten(1).any(1), restart=bad))
+    return X2, r2, xp2, its[0] + its[1]
+
+
+def _ns_lanes(dt, s=1.0):
+    """Five lanes at n = 12 (a pad block of 116) with K = A'(s rho A) + P +
+    sigma I: lanes 0 and 1 carry a warm inverse within 1% and 0.1%, lane 2
+    a zero one (its warm test fails), lanes 3 and 4 none. Lane 3's K is near
+    diagonal (|I - K diag(d)|_F < 1: the Jacobi start's clamp); lane 4's
+    has eigenvalues from 1e-5 to 10 in a dense basis, so that its first
+    pass ends far above ns_tol and it restarts from Jacobi, its pad scalar
+    still short of 1 when the second pass ends."""
+    B, n, m, sigma = 5, 12, 10, 1e-6
+    g = torch.Generator().manual_seed(0)
+    f64 = torch.float64
+    eye = torch.eye(n, dtype=f64)
+    M = torch.randn(B, n, n, generator=g, dtype=f64)
+    P = M @ M.transpose(1, 2) / n + 0.1 * eye
+    N = 0.01 * torch.randn(n, n, generator=g, dtype=f64)
+    P[3] = torch.diag(torch.linspace(1.0, 2.0, n, dtype=f64)) + N + N.T
+    Q = torch.linalg.qr(torch.randn(n, n, generator=g, dtype=f64))[0]
+    P[4] = Q @ torch.diag(torch.logspace(-5, 1, n, dtype=f64)) @ Q.T
+    A = 0.3 * torch.randn(B, m, n, generator=g, dtype=f64)
+    A[3:] *= 1e-3
+    rho = 0.1 + torch.rand(B, m, generator=g, dtype=f64)
+    K = (A.transpose(1, 2) @ (A * rho[:, :, None])) * s + P + sigma * eye
+    Kinv = torch.linalg.inv(K)
+    noise = torch.tensor([0.01, 0.001, 0.0, 0.0, 0.0], dtype=f64)
+    Kinv = Kinv * (1.0 + noise[:, None, None]
+                   * torch.rand(B, n, n, generator=g, dtype=f64))
+    Kinv[2:] = 0.0
+    return tuple(t.to(dt) for t in (P, A, rho, Kinv)) + (sigma,)
+
+
+@pytest.mark.parametrize("caller", ["rescue", "b4"])
+def test_shared_two_pass_newton_schulz_keeps_each_callers_bits(caller,
+                                                              monkeypatch):
+    """B1's plain rescue (``cuda_qp._rescue_kinv``, float32 and float64)
+    and B4's plain prologue (``cuda_qp_fused.prologue_plain``, float32)
+    give the bits they gave when each wrote the Jacobi start and the two
+    Newton-Schulz passes out for itself: the inverse, and for B4 the
+    residual, pad scalar, warm decisions and iteration counts; for the
+    rescue its armed counters. The lanes: warm and cold, one restarted, n
+    not a multiple of 128."""
+    ns_tol, ns_max_iters, s = 1e-4, 7, 5.0
+    dtypes = ((torch.float32, torch.float64) if caller == "rescue"
+              else (torch.float32,))
+    for dt in dtypes:
+        if caller == "rescue":
+            P, A, rho, Kinv, sigma = _ns_lanes(dt, s)
+            # the rescue tries Kinv / s where the pad scalar is near s:
+            # lane 1's pad residual |1 - 0.92| outlasts its K's, so the
+            # pad scalar sets its exit; at 1 the pad block fails the warm
+            # test
+            kpad = torch.tensor([s, 0.92 * s, s, 1.0, 1.0], dtype=dt)
+
+            def run():
+                with tracing.session() as rec:
+                    X = cuda_qp._rescue_kinv(P, A, s * Kinv, kpad, rho,
+                                             sigma, s, ns_tol, ns_max_iters)
+                return X, {k: v for k, v in rec.counts.items()
+                           if k.startswith("admm.rescue.")}
+        else:
+            P, A, rho, Kinv, sigma = _ns_lanes(dt)
+            warm_ok = torch.tensor([True, True, True, False, False])
+
+            def run():
+                return cuda_qp_fused.prologue_plain(
+                    P, A, Kinv, warm_ok, rho, sigma=sigma, ns_tol=ns_tol,
+                    ns_max_iters=ns_max_iters)
+
+        new = run()
+        seen = []
+        with monkeypatch.context() as mp:
+            mp.setattr(cuda_qp, "jacobi_start", _jacobi_start_as_written)
+            mp.setattr(cuda_qp, "ns_two_pass",
+                       lambda *a: _two_pass_as_written(*a, seen=seen))
+            old = run()
+        assert len(seen) == 1
+        assert seen[0]["warm"].tolist() == [True, True, False, False, False]
+        # lane 4 restarts (the rescue's K2 restarts lane 2 as well), the
+        # warm and near-diagonal lanes do not
+        restart = seen[0]["restart"].tolist()
+        assert restart[4] and not (restart[0] or restart[1] or restart[3])
+        if caller == "rescue":
+            assert new[1] == old[1]
+            assert new[1]["admm.rescue.lanes"] == 5
+            assert new[1]["admm.rescue.warm_tests"] == 3
+            new, old = new[:1], old[:1]
+        for a, b in zip(new, old):
+            assert a.dtype == b.dtype
+            assert torch.equal(a, b), (caller, dt)
