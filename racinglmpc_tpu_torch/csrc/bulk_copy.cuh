@@ -10,9 +10,12 @@ static __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// one thread, before any copy on bar; a __syncthreads must pass before use
-static __device__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+// one thread, before any copy on bar; a __syncthreads must pass before use.
+// count: the arrivals that complete a phase
+static __device__ void mbar_init(uint64_t* bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
                : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }

@@ -1262,11 +1262,11 @@ static __device__ float product(int n, int kd, const float* L,
   return mx;
 }
 
-// sum of the squares of R (n x n, global) in the replaced GEMM's order:
-// each thread its 2 x 4 entries of every 64 x 64 tile, fused as
+// sum of the squares of R (n x n at row pitch ld) in the replaced GEMM's
+// order: each thread its 2 x 4 entries of every 64 x 64 tile, fused as
 // sq += v * v, then block_maxsum; the warm tests' Frobenius norms keep
 // their bits
-static __device__ float frob_sq(int n, const float* R, float* red) {
+static __device__ float frob_sq(int n, const float* R, float* red, int ld) {
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
   float mx = 0.f, sq = 0.f;
   for (int i0 = 0; i0 < n; i0 += 64)
@@ -1275,11 +1275,15 @@ static __device__ float frob_sq(int n, const float* R, float* red) {
         for (int q = 0; q < 4; ++q) {
           const int i = i0 + tr * 2 + r, j = j0 + tc * 4 + q;
           if (i >= n || j >= n) continue;
-          const float v = R[(size_t)i * n + j];
+          const float v = R[(size_t)i * ld + j];
           sq = __fmaf_rn(v, v, sq);
         }
   block_maxsum(mx, sq, red);
   return sq;
+}
+
+static __device__ float frob_sq(int n, const float* R, float* red) {
+  return frob_sq(n, R, red, n);
 }
 
 // K = (A' (rho A)) s + P + sigma I, then the Jacobi diagonal

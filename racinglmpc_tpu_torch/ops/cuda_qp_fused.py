@@ -32,19 +32,30 @@ the rescue, whose warm test on Kinv/s sees the pad block as B1's does.
 
 The CUDA version (``csrc/cuda_qp_fused.cu``) is one call of three
 launches, each one CTA of 512 threads per scenario (each scenario exits
-its own Newton-Schulz loop and its own ADMM loop): the prologue, with K,
-X, Y and R in a per-scenario global workspace (4 n^2 floats, allocated
-here), whose products hold the whole n x n output in registers (8 x 8
-outputs a thread, ``cuda_qp.geo``) and stream the operands through
-double-buffered shared-memory slabs, each output keeping the first port's
-fmaf chain (so the bits are those of the 64 x 64-tiled GEMM it replaced);
-then B1's main kernel on the refreshed inverse, in the layout
+its own Newton-Schulz loop and its own ADMM loop): the prologue, then B1's
+main kernel on the refreshed inverse, in the layout
 ``cuda_qp.choose_layout`` picks, its streamed scenarios counted in
 :data:`streamed` (B1's launch counters do not count it); then B1's rescue
-launch (``cuda_qp.launch_rescue``) for the lanes that need it.
-:func:`plan` is the prologue's shared memory, CTAs per SM and waves.
+launch (``cuda_qp.launch_rescue``) for the lanes that need it. The
+prologue builds K with B1's rescue's product core into a per-scenario
+global workspace; its Newton-Schulz products take one of two cores, by n
+alone (:func:`core`):
 
-Counters. :data:`launches` counts calls. While a tracing session is armed
+- ``"resident"`` (n <= 152, :data:`RESIDENT_MAX_N`): X and R stay in
+  shared memory for the whole prologue and K streams from the workspace in
+  16-column slabs by bulk copies; the warps holding cells multiply, 6 x 8
+  outputs a thread (:func:`rgeo`);
+- ``"product"`` (larger n): ``qp_common.cuh:product``, shared with B1's
+  rescue: K, X, Y and R in the workspace, 8 x 8 outputs a thread
+  (``cuda_qp.geo``), the operands streamed through double-buffered
+  shared-memory slabs.
+
+Each output of either keeps the first port's fmaf chain (so the bits are
+those of the 64 x 64-tiled GEMM it replaced, on both cores). :func:`plan`
+is the prologue's core, shared memory, CTAs per SM and waves.
+
+Counters. :data:`launches` counts calls, :data:`core_launches` the
+calls whose prologue took each core. While a tracing session is armed
 each call adds its per-lane outputs to :data:`work` on the device (sums of
 ``FusedResult`` fields, a few small launches and no host sync; disarmed
 nothing is added): ``fused.lanes``, ``fused.warm_lanes`` (the warm start
@@ -67,14 +78,73 @@ launches = tracing.LaunchCounter("fused_admm")
 # launches at each iteration precision of the ADMM loop
 precision_launches = {p: tracing.LaunchCounter(f"fused_admm_{p}")
                       for p in cuda_qp.ITER_PRECISIONS}
+CORES = ("resident", "product")
+# launches whose Newton-Schulz products took each core
+core_launches = {c: tracing.LaunchCounter(f"fused_core_{c}") for c in CORES}
 streamed = tracing.ScenarioCounter("fused_admm_streamed")
 work = tracing.ScenarioCounter(
     "fused", ("lanes", "warm_lanes", "ns_lane_iters", "rescued_lanes"),
     armed_only=True)
 MAX_REGS = 128    # registers a thread may take at 512 threads, one CTA an SM
+# the resident core (csrc/cuda_qp_fused.cu): rows of an output cell (its
+# columns 8), columns of K a slab, a slab row's pitch, slab buffers
+_RM, _SK, _SKP, _NSTAGE = 6, 16, 20, 2
+
+
+class RGeo(NamedTuple):
+    """The resident core at n (cuda_qp_fused.cu:rgeo): thread t < cr cc
+    holds rows 6 ci .. 6 ci + 5 and columns 4 cj .. 4 cj + 3 and 4 cc +
+    4 cj .. 4 cc + 4 cj + 3, (ci, cj) = (t // cc, t % cc)."""
+    cc: int       # column cells, ceil(n / 8)
+    cr: int       # row cells, ceil(n / 6)
+    rows: int     # rows of X, R and a slab buffer
+    ld: int       # row pitch of X and R (a multiple of 4, ld / 4 odd)
+    nslab: int    # 16-column slabs of K
+
+
+def rgeo(n: int) -> RGeo:
+    r4 = cuda_qp._r4(n)
+    cr = -(-n // _RM)
+    return RGeo(-(-n // 8), cr, max(_RM * cr, r4),
+                r4 + (4 if (r4 // 4) % 2 == 0 else 0), -(-n // _SK))
+
+
+def core(n: int) -> str:
+    """The core of the prologue's Newton-Schulz products at n
+    (cuda_qp_fused.cu:fused_resident): ``"resident"`` where its cells fit
+    512 threads, else ``"product"``."""
+    g = rgeo(n)
+    return "resident" if g.cr * g.cc <= cuda_qp._NT else "product"
+
+
+RESIDENT_MAX_N = max(n for n in range(1, 257) if core(n) == "resident")
+
+
+def ws_floats(n: int) -> int:
+    """Floats of a scenario's global workspace (cuda_qp_fused.cu:
+    fused_ws_floats): 4 n^2 (the product core's K, X, Y, R; B1's rescue
+    takes the same after), or the resident core's K and slabs where more."""
+    return max(4 * n * n,
+               cuda_qp._r4(n * n) + rgeo(n).nslab * n * _SKP)
+
+
+def smem_floats(n: int, m: int) -> int:
+    """Floats of the prologue's dynamic shared memory. Resident: the slab
+    buffers' mbarriers (8), the reductions' scratch (32), the Jacobi
+    diagonal, then X and R (each rows x ld + 8) and the slab buffers, over
+    which the K build lays its context and slabs first; product: the
+    context, the product core's slabs and the diagonal."""
+    if core(n) == "product":
+        return cuda_qp.ctx_floats(n, m) + cuda_qp.prologue_floats(n)
+    g = rgeo(n)
+    kbuild = cuda_qp.ctx_floats(n, m) + cuda_qp.prologue_floats(n) \
+        - cuda_qp._r4(n)
+    return 8 + 32 + cuda_qp._r4(n) + max(
+        kbuild, 2 * (g.rows * g.ld + 8) + _NSTAGE * g.rows * _SKP)
 
 
 class Plan(NamedTuple):
+    core: str          # the Newton-Schulz products' core (:func:`core`)
     layout: str        # the ADMM launch's layout (cuda_qp.choose_layout)
     nbytes: int        # dynamic shared memory of a prologue CTA
     threads: int       # threads holding an output cell in a product pass
@@ -85,19 +155,25 @@ class Plan(NamedTuple):
 
 def plan(n: int, m: int, B: int = 256) -> Plan:
     """The prologue launch at (n, m) for a batch of B (the kernel source
-    counts the same bytes, ``rl_fused_smem_bytes``): the context and the
-    product core's slabs and Jacobi diagonal. CTAs per SM count shared
-    memory (with the runtime's reservation), threads and registers: over
-    64 a thread (the 8 x 8 cells) hold the card to one CTA of 512 threads
-    per SM. The ADMM loop then runs as B1's main launch in ``layout``."""
-    nbytes = 4 * (cuda_qp.ctx_floats(n, m) + cuda_qp.prologue_floats(n))
+    counts the same bytes, ``rl_fused_smem_bytes``). CTAs per SM count
+    shared memory (with the runtime's reservation), threads and registers:
+    over 64 a thread hold the card to one CTA of 512 threads per SM (the
+    resident core's shared memory alone does too). The ADMM loop then runs
+    as B1's main launch in ``layout``."""
+    nbytes = 4 * smem_floats(n, m)
     by_smem = (0 if nbytes > cuda_build.SMEM_PER_CTA else
                cuda_build.SMEM_PER_SM // (nbytes + cuda_build.SMEM_RESERVED))
     ctas = min(by_smem, 2048 // cuda_qp._NT,
                cuda_build.REGS_PER_SM // (cuda_qp._NT * MAX_REGS))
-    g = cuda_qp.geo(n)
-    return Plan(cuda_qp.choose_layout(n, m).name, nbytes, g.cr * g.cells,
-                g.passes, ctas,
+    c = core(n)
+    if c == "resident":
+        g = rgeo(n)
+        threads, passes = g.cr * g.cc, 1
+    else:
+        g = cuda_qp.geo(n)
+        threads, passes = g.cr * g.cells, g.passes
+    return Plan(c, cuda_qp.choose_layout(n, m).name, nbytes, threads,
+                passes, ctas,
                 -(-B // (ctas * cuda_build.N_SM)) if ctas else 0)
 
 
@@ -179,13 +255,23 @@ def _launchers(lib: ctypes.CDLL):
                              + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
         ctas=cuda_build.bind(lib, "rl_fused_ctas_per_sm", [ctypes.c_int] * 2),
         smem=cuda_build.bind(lib, "rl_fused_smem_bytes", [ctypes.c_int] * 2,
-                             ctypes.c_longlong))
+                             ctypes.c_longlong),
+        resident=cuda_build.bind(lib, "rl_fused_resident", [ctypes.c_int]),
+        ws=cuda_build.bind(lib, "rl_fused_ws_floats", [ctypes.c_int],
+                           ctypes.c_longlong))
 
 
 def smem_bytes_on_card(n: int, m: int) -> int:
     """The prologue launch's dynamic shared memory as the kernel source
     counts it (to hold :func:`plan` against)."""
     return _launchers(cuda_build.library())["smem"](n, m)
+
+
+def source_plan(n: int) -> tuple:
+    """(core, workspace floats a scenario) at n as the kernel source
+    decides them (to hold :func:`core` and :func:`ws_floats` against)."""
+    f = _launchers(cuda_build.library())
+    return ("resident" if f["resident"](n) else "product"), f["ws"](n)
 
 
 def ctas_per_sm_on_card(n: int, m: int) -> int:
@@ -245,7 +331,7 @@ def admm_iterate_fused(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0, z0,
     ns_resid = torch.empty((Bsz,), dtype=torch.float32, device=dev)
     kpad = torch.empty((Bsz,), dtype=torch.float32, device=dev)
     ns_info = torch.empty((Bsz, 2), dtype=torch.int32, device=dev)
-    ws = torch.empty((Bsz, 4, n, n), dtype=torch.float32, device=dev)
+    ws = torch.empty((Bsz, ws_floats(n)), dtype=torch.float32, device=dev)
     Pt = cuda_build.ptr
     err = _launchers(cuda_build.library())["main"](
         p, Pt(P), Pt(A), Pt(kinv0), Pt(warm_i), Pt(nvecs), Pt(vecs),
@@ -255,6 +341,7 @@ def admm_iterate_fused(P, A, kinv0, warm_ok, q, l, u, rho, D, E, c, x0, z0,
         cuda_build.stream_ptr())
     launches.n += 1
     precision_launches[iter_precision].n += 1
+    core_launches[core(n)].n += 1
     cuda_build.check(err)
     if rescue_max_iter > 0:
         cuda_qp.launch_rescue(p, P, kinv, A, nvecs, vecs, c_inv, kpad, x, z,

@@ -42,7 +42,10 @@ over the whole batch (no per-scenario exits). ``--phases`` prints scenario
 and update products of its Newton-Schulz iterations (sums and per
 product) and both passes as a whole, and over all its products the
 cycles a cell thread spent at the slab barriers, multiplying and in the
-epilogues, and a producer's issuing and waiting.
+epilogues, and a producer's issuing and waiting. On the resident core
+(n <= 152) a cell thread's slab barriers are its waits for K's slabs and
+the barrier after each, and the producer is the thread that issues the
+bulk copies: its issue and its time between them.
 
 ``--iter-precision`` (``highest``, the default, ``bf16x3`` or ``default``:
 the reference's ``pallas_iter_precision``) runs ``--load`` and

@@ -505,6 +505,7 @@ def test_fused_admm_main_path_ftocps(setup):
     ctrl = lmpc_mod.make_lmpc(cfg.lmpc, trk, cfg.solver, 0.1)
     qp = ctrl.build_qp(st, x0)[0]
     assert qp.q.shape[1] == 200 and cuda_qp_fused.plan(200, 257).passes == 2
+    assert cuda_qp_fused.core(200) == "product"
     _fused_vs_plain(qp, dataclasses.replace(cfg.solver, pallas_fused_ns=True),
                     (st.warm_x, st.warm_y), st.fac)
 
@@ -550,10 +551,12 @@ def test_fused_admm_iteration_precision_matches_plain(setup, prec):
 def test_fused_plan_matches_kernel_source_and_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    for n, m in ((146, 202), (200, 257), (30, 26)):
+    for n, m in ((146, 202), (200, 257), (30, 26), (152, 202), (153, 202)):
         pl = cuda_qp_fused.plan(n, m)
         assert cuda_qp_fused.smem_bytes_on_card(n, m) == pl.nbytes
         assert cuda_qp_fused.ctas_per_sm_on_card(n, m) == pl.ctas_per_sm
+        assert cuda_qp_fused.source_plan(n) == (pl.core,
+                                                cuda_qp_fused.ws_floats(n))
 
 
 @pytest.fixture(scope="module")
@@ -600,6 +603,39 @@ def test_fused_admm_matches_plain(stages, stage):
     with pytest.raises(ValueError, match="shape"):
         cuda_qp_fused.admm_iterate_fused(*args[:5], args[5][:, :-1],
                                          *args[6:], **kw)
+
+
+def test_fused_resident_core_on_256_ltv_lanes(stages):
+    """B4's resident core at (n, m) = (146, 202) on 256 lanes of the LTV
+    stage's FTOCPs, cold and warm lanes mixed (a third handed the refreshed
+    inverse of a first call, a fifth no warm start): per lane the plain
+    version's warm decision and Newton-Schulz count, a refreshed inverse
+    within the gate, the same bits over two calls, and one launch of the
+    resident core a call, none of the product core."""
+    cfg, trk, res = stages
+    f = stage_path.stage_ftocps(res, cfg, "ltv", trk)
+    kw = qp_mod.fused_inputs(f.qp, cfg.solver, f.warm, f.fac)
+    a = {k: v.repeat((256 // B,) + (1,) * (v.dim() - 1)).contiguous()
+         for k, v in ((n, kw.pop(n)) for n in FUSED_NAMES)}
+    assert a["P"].shape == (256, 146, 146) and a["A"].shape[1] == 202
+    assert cuda_qp_fused.core(146) == "resident"
+    first = cuda_qp_fused.admm_iterate_fused(*(a[n] for n in FUSED_NAMES),
+                                             **kw)
+    lane = torch.arange(256, device=a["P"].device)
+    a["kinv0"] = torch.where((lane % 3 == 0)[:, None, None], first.kinv,
+                             a["kinv0"]).contiguous()
+    a["warm_ok"] = a["warm_ok"] & (lane % 5 != 2)
+    args = [a[n] for n in FUSED_NAMES]
+    before = {c: cuda_qp_fused.core_launches[c].n for c in cuda_qp_fused.CORES}
+    k = cuda_qp_fused.admm_iterate_fused(*args, **kw)
+    p = cuda_qp_fused.admm_iterate_fused_plain(*args, **kw)
+    assert bool(k.warm.any()) and not bool(k.warm.all())
+    assert torch.equal(k.warm, p.warm)
+    assert torch.equal(k.ns_iters, p.ns_iters)
+    _kinv_residual_ok(args, k, kw)
+    assert _same_bits(k, cuda_qp_fused.admm_iterate_fused(*args, **kw))
+    assert cuda_qp_fused.core_launches["resident"].n == before["resident"] + 2
+    assert cuda_qp_fused.core_launches["product"].n == before["product"]
 
 
 @pytest.mark.parametrize("stage", ["lti", "ltv"])

@@ -7,8 +7,10 @@ in one wave; the launch arguments are built once per (vehicle, table,
 config) and a different vehicle or table gives new ones. The SASS and
 ``-Xptxas -v`` readers of ``runtime/kernel_bench.py`` are checked on
 fixed text. ``cuda_qp_fused.plan`` (B4's prologue) must keep one CTA of
-512 threads per SM within the card's shared memory, and the product core's
-8 x 8 output cells must cover every output of a product exactly once.
+512 threads per SM within the card's shared memory, the prologue's core
+must follow n alone, and the output cells of both cores (the resident
+core's 6 x 8, ``product``'s 8 x 8) must cover every output of a product
+exactly once.
 """
 import dataclasses
 
@@ -119,17 +121,28 @@ def test_sysid_params_cached_per_shape_config_table(table):
 
 
 # (n, m): the MPC stages' FTOCP (LTI and LTV), the main path's LMPC FTOCP,
-# the random QPs of tests/test_torch_fused_qp.py
-FUSED_SHAPES = [(146, 202, 361, 1), (200, 257, 325, 2), (30, 26, 16, 1)]
+# the random QPs of tests/test_torch_fused_qp.py; the prologue's core, its
+# cell threads and passes
+FUSED_SHAPES = [(146, 202, "resident", 475, 1), (200, 257, "product", 325, 2),
+                (30, 26, "resident", 20, 1)]
 
 
-@pytest.mark.parametrize("n, m, threads, passes", FUSED_SHAPES)
-def test_fused_plan_one_cta_per_sm(n, m, threads, passes):
+@pytest.mark.parametrize("n, m, core, threads, passes", FUSED_SHAPES)
+def test_fused_plan_one_cta_per_sm(n, m, core, threads, passes):
     pl = cuda_qp_fused.plan(n, m, 256)
     assert pl.layout == cuda_qp.choose_layout(n, m).name == "resident"
-    # the prologue: the context, the product core's slabs and the diagonal
-    assert pl.nbytes == 4 * (cuda_qp.ctx_floats(n, m)
-                             + cuda_qp.prologue_floats(n))
+    assert pl.core == core
+    kbuild = cuda_qp.ctx_floats(n, m) + cuda_qp.prologue_floats(n)
+    if core == "product":
+        # the context, the product core's slabs and the diagonal
+        assert pl.nbytes == 4 * kbuild
+    else:
+        # the mbarriers, the scratch, the diagonal, then X, R and two slabs
+        # of K, over which the K build lays its context and slabs
+        g = cuda_qp_fused.rgeo(n)
+        mats = 2 * (g.rows * g.ld + 8) + 2 * g.rows * 20
+        assert pl.nbytes == 4 * (8 + 32 + cuda_qp._r4(n)
+                                 + max(kbuild - cuda_qp._r4(n), mats))
     assert pl.nbytes <= cuda_build.SMEM_PER_CTA
     assert pl.ctas_per_sm == 1 and pl.waves == 2
     assert cuda_qp_fused.plan(n, m, 132).waves == 1
@@ -137,13 +150,65 @@ def test_fused_plan_one_cta_per_sm(n, m, threads, passes):
 
 
 def test_fused_plan_registers_hold_one_cta():
-    # 512 threads of up to 128 registers take the whole register file;
-    # shared memory alone would hold three prologue CTAs at n = 146
+    # 512 threads of up to 128 registers take the whole register file; at
+    # n = 146 the resident core's shared memory alone holds one CTA too,
+    # at n = 200 the product core's would hold three
     assert cuda_qp_fused.MAX_REGS * 512 == cuda_build.REGS_PER_SM
-    pl = cuda_qp_fused.plan(146, 202, 256)
-    assert cuda_build.SMEM_PER_SM // (pl.nbytes
+    res = cuda_qp_fused.plan(146, 202, 256)
+    assert cuda_build.SMEM_PER_SM // (res.nbytes
+                                      + cuda_build.SMEM_RESERVED) == 1
+    pro = cuda_qp_fused.plan(200, 257, 256)
+    assert cuda_build.SMEM_PER_SM // (pro.nbytes
                                       + cuda_build.SMEM_RESERVED) >= 3
-    assert pl.ctas_per_sm == 1
+    assert res.ctas_per_sm == pro.ctas_per_sm == 1
+
+
+@pytest.mark.parametrize("n", [1, 6, 8, 30, 146, 151, 152])
+def test_fused_resident_cells_cover_each_output_once(n):
+    """The resident core's cell geometry (cuda_qp_fused.cu:rgeo): thread
+    t < cr cc holds cell (t / cc, t % cc), rows 6 ci + r (r < 6), columns
+    4 cj + q and 4 cc + 4 cj + q (q < 4); X, R and the slab buffers hold
+    every row and column a cell or a product's k reads."""
+    g = cuda_qp_fused.rgeo(n)
+    assert g.cr * g.cc <= 512 and 8 * g.cc >= n and 6 * g.cr >= n
+    assert g.ld % 4 == 0 and (g.ld // 4) % 2 == 1 and g.ld >= n
+    assert g.rows >= 6 * g.cr and g.rows >= cuda_qp._r4(n)
+    assert 8 * g.cc <= g.ld + 8     # the last row's columns past ld
+    assert g.nslab * 16 >= n
+    seen = torch.zeros((n, n), dtype=torch.int32)
+    for t in range(g.cr * g.cc):
+        ci, cj = divmod(t, g.cc)
+        rows = [6 * ci + r for r in range(6)]
+        cols = [4 * cj + q for q in range(4)] + [
+            4 * g.cc + 4 * cj + q for q in range(4)]
+        for i in rows:
+            for j in cols:
+                if i < n and j < n:
+                    seen[i, j] += 1
+    assert bool((seen == 1).all())
+
+
+@pytest.mark.parametrize("n, core", [(1, "resident"), (30, "resident"),
+                                     (146, "resident"), (151, "resident"),
+                                     (152, "resident"), (153, "product"),
+                                     (160, "product"), (200, "product")])
+def test_fused_core_follows_n_alone(n, core):
+    """The prologue's core changes at n = 152, the largest n whose 6 x 8
+    cells fit 512 threads, whatever m; where it is resident its layout
+    fits a CTA's shared memory at the stages' and the main path's m."""
+    assert cuda_qp_fused.RESIDENT_MAX_N == 152
+    assert cuda_qp_fused.core(n) == core
+    for m in (1, 26, 202, 257, 1000):
+        pl = cuda_qp_fused.plan(n, m)
+        assert pl.core == core
+        assert pl.nbytes <= cuda_build.SMEM_PER_CTA
+    # the workspace holds the resident core's K and slabs, and the 4 n^2
+    # floats B1's rescue takes after
+    assert cuda_qp_fused.ws_floats(n) >= 4 * n * n
+    if core == "resident":
+        g = cuda_qp_fused.rgeo(n)
+        assert cuda_qp_fused.ws_floats(n) >= (cuda_qp._r4(n * n)
+                                              + g.nslab * n * 20)
 
 
 @pytest.mark.parametrize("n", [1, 8, 30, 146, 168, 169, 200, 257])
