@@ -298,19 +298,25 @@ def stage_ok(torch, x, stage):
 
 class SolveTally:
     """Counts the solves of a run and the ones the MPC controllers accept
-    (finite, primal residual below ``accept_pri_res``), on the device."""
+    (finite, primal residual below ``accept_pri_res``), on the device, in
+    place: a CUDA graph of the step captures the count with the solve, and
+    each replay adds to it."""
 
     def __init__(self, torch, qp_mod):
         self.torch, self.qp_mod, self.orig = torch, qp_mod, qp_mod.solve
-        self.n, self.acc = 0, None
+        self.tot = self.acc = None
 
     def __enter__(self):
+        zero = dict(dtype=self.torch.int64, device="cuda")
+        self.tot = self.torch.zeros((), **zero)
+        self.acc = self.torch.zeros((), **zero)
+
         def solve(qp, cfg, *a, **k):
             sol = self.orig(qp, cfg, *a, **k)
             ok = (self.torch.isfinite(sol.x).all(-1)
                   & (sol.pri_res < cfg.accept_pri_res)).sum()
-            self.n += sol.x.shape[0]
-            self.acc = ok if self.acc is None else self.acc + ok
+            self.tot.add_(sol.x.shape[0])
+            self.acc.add_(ok)
             return sol
         self.qp_mod.solve = solve
         return self
@@ -318,8 +324,13 @@ class SolveTally:
     def __exit__(self, *exc):
         self.qp_mod.solve = self.orig
 
+    @property
+    def n(self) -> int:
+        return int(self.tot)
+
     def share(self):
-        return float(self.acc) / self.n if self.n else float("nan")
+        n = self.n
+        return int(self.acc) / n if n else float("nan")
 
 
 def stage_runs(torch, qp_mod, counters, cuda_qp, cuda_qp_fused):

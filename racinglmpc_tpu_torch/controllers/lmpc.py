@@ -195,7 +195,7 @@ def _select_lap_points(ss: SafeSet, ext: ExtBuffer, lap: torch.Tensor,
     xs = ss.x[bi, lap]                                   # (B,S,cap,6)
     n = ss.n_pts[bi, lap]                                # (B,S)
     e_n = torch.where(recent, ext.n[:, None], torch.zeros_like(n))
-    inf = torch.tensor(float("inf"), dtype=xs.dtype, device=xs.device)
+    inf = float("inf")
     d_st = (xs - zt[:, None, None, :]).abs().sum(-1)
     d_st = torch.where(torch.arange(cap, device=n.device) < n[..., None],
                        d_st, inf)
@@ -382,7 +382,7 @@ class LMPCController:
             L)
         A, B, C = self.sysid(state.store, x_lin[:, :N], state.u_lin)
         qp = ocp.assemble_qp(self.dims, self.tmpl, ocp.StageDynamics(A, B, C),
-                             x0, state.u_old, self.cfg.dR, ss_points=ss_pts,
+                             x0, state.u_old, self.tmpl.dR, ss_points=ss_pts,
                              qfun_sel=qfun_sel)
         return qp, zt, succ_x, succ_u
 
@@ -391,10 +391,14 @@ class LMPCController:
         """One batched LMPC control step (``noise`` is unused: the
         controller is deterministic). Returns (state, u (B, 2))."""
         dims = self.dims
+        # the Ruiz count's flag, read at the sweeps (after the launches of
+        # the terminal set, the sys-ID and the assembly)
+        sweeps = qp_mod.SweepCount(self.solver_cfg, state.fac)
         qp, zt, succ_x, succ_u = self.build_qp(state, x0)
         sol = qp_mod.solve(qp, self.solver_cfg,
                            warm=(state.warm_x, state.warm_y), fac=state.fac,
-                           structure=kkt_band.band_structure(dims.N, dims.K))
+                           structure=kkt_band.band_structure(dims.N, dims.K),
+                           sweeps=sweeps)
         return self.accept(state, x0, sol, zt, succ_x, succ_u)
 
     @tracing.traced("ctrl.accept")
@@ -424,10 +428,8 @@ class LMPCController:
             -0.6 * x0c[:, 5] - 0.9 * x0c[:, 3],
             torch.clamp(1.5 * (cfg.fallback_vt - x0c[:, 0]), min=-1.0)], -1)
         use_pid = rejects >= cfg.fallback_after
-        bounds = torch.tensor([cfg.delta_max, cfg.a_max], dtype=dtype,
-                              device=x0c.device)
-        u_apply = torch.clamp(_w(use_pid, u_pid, u_pred[:, 0]), -bounds,
-                              bounds)
+        box = self.tmpl.u_box
+        u_apply = torch.clamp(_w(use_pid, u_pid, u_pred[:, 0]), -box, box)
         zt_new = _w(use_pid, x0c, zt_new)
         zt_u_new = _w(use_pid, u_apply, zt_u_new)
         x_lin_new = torch.cat([x_pred[:, 1:], zt_new[:, None]], 1)

@@ -27,6 +27,12 @@ lane (0 and False where B4 did not run). The JAX package's state has no
 such fields (:data:`SOLVE_INFO`). The step runs under the spans the LMPC
 step uses (``runtime/tracing.py``): ``ctrl.step`` > ``ctrl.sysid`` (LTV),
 ``ctrl.assemble``, ``qp.solve``, ``ctrl.accept``.
+
+On CUDA in float32 the step is replayed as CUDA graphs
+(``runtime/step_graph.py``), one a Ruiz sweep count, the span
+``ctrl.step`` > ``ctrl.graph``: its one host wait is the read of the
+count's flag, before the replay. The graph returns fresh tensors and
+gives the eager step's bits.
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ from racinglmpc_tpu_torch.models import sysid
 from racinglmpc_tpu_torch.models import track as track_mod
 from racinglmpc_tpu_torch.ops import cuda_sysid, kkt_band
 from racinglmpc_tpu_torch.ops import qp as qp_mod
-from racinglmpc_tpu_torch.runtime import tracing
+from racinglmpc_tpu_torch.runtime import step_graph, tracing
 from racinglmpc_tpu_torch.utils.batched import lane_where as _w
 from racinglmpc_tpu_torch.utils.config import (LMPCConfig, MPCConfig,
                                                SolverConfig)
@@ -110,18 +116,19 @@ def _templates(cfg: MPCConfig, dtype, device):
         a_max=cfg.a_max, dtype=dtype, device=device)
 
 
-def _clip_u(u: torch.Tensor, cfg: MPCConfig) -> torch.Tensor:
-    bounds = torch.tensor([cfg.delta_max, cfg.a_max], dtype=u.dtype,
-                          device=u.device)
-    return torch.clamp(u, -bounds, bounds)
+def _clip_u(u: torch.Tensor, box: torch.Tensor) -> torch.Tensor:
+    """The input clipped to ``box`` (the templates' ``u_box``)."""
+    return torch.clamp(u, -box, box)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class MPCController:
     """A built LTI (``store`` None, fixed ``dyn``) or LTV controller:
-    ``ctrl(state, x0, noise=None) -> (state, u)``; :meth:`build_qp` is the
-    step's FTOCP (the smoke script reads it). ``table``: the LTV track's
-    segment table on the host, the sys-ID kernel's launch arguments."""
+    ``ctrl(state, x0, noise=None) -> (state, u)``, replayed as a CUDA graph
+    where :meth:`graphed` holds, else :meth:`step`, the same step run
+    eagerly; :meth:`build_qp` is the step's FTOCP (the smoke script reads
+    it). ``table``: the LTV track's segment table on the host, the sys-ID
+    kernel's launch arguments."""
 
     cfg: MPCConfig
     solver_cfg: SolverConfig
@@ -133,6 +140,11 @@ class MPCController:
     lmpc_cfg: Optional[LMPCConfig] = None
     dt_ctrl: float = 0.1
     table: Optional[track_mod.TrackTable] = None
+    graph: step_graph.StepGraph = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "graph",
+                           step_graph.StepGraph(self._graph_step))
 
     @property
     def structure(self):
@@ -166,13 +178,43 @@ class MPCController:
     def build_qp(self, state: MPCState, x0: torch.Tensor) -> qp_mod.QPData:
         dyn = self.dyn if self.store is None else self.sysid(state)
         return ocp.assemble_qp(self.dims, self.tmpl, dyn, x0, state.u_old,
-                               self.cfg.dR)
+                               self.tmpl.dR)
+
+    def graphed(self, state: MPCState) -> bool:
+        """Whether the step replays as a CUDA graph: a float32 state on
+        CUDA whose solve takes a kernel path with no host read (B1 or B4 at
+        fixed rho, no polish, no structured KKT build). Elsewhere it runs
+        eagerly."""
+        s = self.solver_cfg
+        return (state.u_old.is_cuda and state.u_old.dtype == torch.float32
+                and s.use_pallas and not s.adaptive_rho and not s.polish
+                and not (s.kkt_structured and self.structure is not None))
 
     @tracing.traced("ctrl.step")
     def __call__(self, state: MPCState, x0: torch.Tensor, noise=None):
+        if not self.graphed(state):
+            return self.step(state, x0)
+        return self.graph((state, x0), self._graph_key)
+
+    def _graph_key(self, inputs) -> tuple:
+        # the Ruiz count (the step's one wait, on a flag of the cache it is
+        # handed) and the tracer's arming (its device counters' pointers)
+        return (qp_mod.SweepCount(self.solver_cfg, inputs[0].fac).total,
+                tracing.armed())
+
+    def _graph_step(self, inputs, key):
+        return self.step(*inputs, sweeps=qp_mod.SweepCount.of(key[0]))
+
+    def step(self, state: MPCState, x0: torch.Tensor,
+             sweeps: Optional[qp_mod.SweepCount] = None):
+        """The step, eagerly. ``sweeps``: its Ruiz count (by default read
+        from ``state.fac``, made before the sys-ID is launched and waited
+        for at the sweeps)."""
+        if sweeps is None:
+            sweeps = qp_mod.SweepCount(self.solver_cfg, state.fac)
         sol = qp_mod.solve(self.build_qp(state, x0), self.solver_cfg,
                            warm=(state.warm_x, state.warm_y), fac=state.fac,
-                           structure=self.structure)
+                           structure=self.structure, sweeps=sweeps)
         return self.accept(state, x0, sol)
 
     @tracing.traced("ctrl.accept")
@@ -187,7 +229,7 @@ class MPCController:
         x_pred = _w(ok, x_pred, state.x_pred)
         u_pred = _w(ok, u_pred, state.u_old[:, None, :].expand_as(u_pred))
         wx_s, wy_s = ocp.shift_warm(dims, sol.x, sol.y)
-        u = _clip_u(u_pred[:, 0], self.cfg)
+        u = _clip_u(u_pred[:, 0], self.tmpl.u_box)
         new = state._replace(
             u_old=u, x_pred=x_pred, u_pred=u_pred,
             warm_x=_w(ok, wx_s, torch.zeros_like(sol.x)),

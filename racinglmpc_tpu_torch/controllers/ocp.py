@@ -4,7 +4,8 @@ Port of ``racinglmpc_tpu/controllers/ocp.py``. Decision vector layout:
 
     z = [ x_0..x_N | u_0..u_{N-1} | laneSlack (2N) | (λ_1..λ_K | termSlack) ]
 
-:func:`make_templates` builds every constant block once (numpy, float64);
+:func:`make_templates` builds every constant block once (numpy, float64),
+with the input-rate weights and the input box the step reads;
 :func:`assemble_qp` scatters one step's dynamics, offsets, input-rate term
 and safe-set data into them for a whole scenario batch (leading axis B).
 """
@@ -39,6 +40,8 @@ class FTOCPTemplates(NamedTuple):
     L0: torch.Tensor       # (me,)
     idx_A: torch.Tensor    # (N*36,) flat G indices of the -A_k blocks
     idx_B: torch.Tensor    # (N*12,) flat G indices of the -B_k blocks
+    dR: torch.Tensor       # (d,) input-rate weights (assemble_qp's q term)
+    u_box: torch.Tensor    # (d,) [delta_max, a_max]: the applied input's box
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,7 +183,8 @@ def make_templates(*, N: int, Q, R, dR, Qf, q_slack, x_ref, ey_max: float,
 
     return dims, FTOCPTemplates(
         H=t(H), q_const=t(q_const), F=t(F), b=t(b), G0=t(G0), E=t(E),
-        L0=t(L0), idx_A=ti(idx_A), idx_B=ti(idx_B))
+        L0=t(L0), idx_A=ti(idx_A), idx_B=ti(idx_B), dR=t(dR),
+        u_box=t(np.array([delta_max, a_max])))
 
 
 @tracing.traced("ctrl.assemble")
@@ -191,7 +195,9 @@ def assemble_qp(dims: FTOCPDims, tmpl: FTOCPTemplates, dyn: StageDynamics,
     """Scatter one step's data into the templates -> batched OSQP-form QP.
 
     ``x0`` (B, 6), ``u_old`` (B, 2), ``ss_points`` (B, 6, K),
-    ``qfun_sel`` (B, K). Rows are [ineq; eq] with l = -inf on ineq rows.
+    ``qfun_sel`` (B, K). ``dR``: the input-rate weights, ``tmpl.dR`` (on
+    the device) or numbers (copied from the host each call). Rows are
+    [ineq; eq] with l = -inf on ineq rows.
     """
     n, d, N = dims.n, dims.d, dims.N
     dt = tmpl.H.dtype

@@ -10,6 +10,7 @@ draws; it is scaled, clipped and added to ``x`` only, never ``x_glob``.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -70,13 +71,20 @@ def rollout(state: PlantState, u, vp: VehicleParams, trk: track_mod.Track,
     return state
 
 
+@functools.lru_cache(maxsize=16)
+def _sigma(sigma: tuple, dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """The noise scales on the device, copied from the host once."""
+    return torch.as_tensor(sigma, dtype=dtype, device=device)
+
+
 def apply_noise(x: torch.Tensor, noise: Optional[torch.Tensor],
                 cfg: SimConfig) -> torch.Tensor:
     """Add ``noise_gain * clip(noise * sigma)`` to (vx, vy, wz) when the
     config has noise on and draws are given."""
     if not cfg.noise or noise is None:
         return x
-    sig = torch.as_tensor(cfg.noise_sigma, dtype=x.dtype, device=x.device)
+    sig = _sigma(tuple(cfg.noise_sigma), x.dtype, x.device)
     add = cfg.noise_gain * torch.clamp(noise.to(x.dtype) * sig,
                                        -cfg.noise_clip, cfg.noise_clip)
     return torch.cat([x[..., :3] + add, x[..., 3:]], dim=-1)

@@ -14,7 +14,8 @@ count.
 Stages (reference ``qp.py`` line ranges in brackets):
 
 - warm Ruiz equilibration with the ``scaling_refresh_every`` schedule
-  [117-167, 419-443];
+  [117-167, 419-443], its sweep count taken from the factor cache the
+  step is handed (:class:`SweepCount`: no read of the step's own tensors);
 - K = P + sigma I + A' rho A and its Newton-Schulz inverse with the
   12-step power-iteration warm gate and the unconditional final squaring
   [185-300]: on a CUDA float32 K (n <= 200) one hand-written kernel in
@@ -104,13 +105,65 @@ def _amax(a):
     return a.abs().amax(-1)
 
 
+def refresh_lanes(cfg: SolverConfig, fac: FactorCache) -> torch.Tensor:
+    """(B,) bool: the lanes whose Ruiz scaling starts cold (an invalid
+    cache, or its age a multiple of ``scaling_refresh_every``)."""
+    refresh = ~fac.valid
+    if cfg.scaling_refresh_every > 0:
+        refresh = refresh | (fac.age % cfg.scaling_refresh_every == 0)
+    return refresh
+
+
+class SweepCount:
+    """The Ruiz sweeps a solve from the factor cache ``fac`` runs:
+    ``cfg.scaling_iters`` where any lane refreshes (:func:`refresh_lanes`),
+    else the warm count. Each lane's own count is masked in the sweeps, so
+    this total only has to cover them all, and it exists before the step
+    starts. On CUDA the any-lane flag is copied without blocking into
+    pinned memory behind an event when the count is made (at the start of
+    a step); :attr:`total` waits for that event alone, not for the work
+    queued after it. ``SweepCount.of(n)``: a total the host already
+    knows."""
+
+    def __init__(self, cfg: SolverConfig, fac: Optional[FactorCache]):
+        self.cold = cfg.scaling_iters
+        self.warm = min(cfg.scaling_warm_iters, cfg.scaling_iters)
+        self._n: Optional[int] = None
+        self._event = None
+        if fac is None or cfg.scaling_iters <= 0:
+            self._n = self.cold
+            return
+        flag = refresh_lanes(cfg, fac).any()
+        if flag.is_cuda:
+            self._flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+            self._flag.copy_(flag, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._flag = flag
+
+    @classmethod
+    def of(cls, n: int) -> "SweepCount":
+        count = cls.__new__(cls)
+        count._n = n
+        return count
+
+    @property
+    def total(self) -> int:
+        if self._n is None:
+            if self._event is not None:
+                self._event.synchronize()
+            self._n = self.cold if bool(self._flag) else self.warm
+        return self._n
+
+
 @tracing.traced("qp.ruiz")
-def _ruiz_equilibrate(qp: QPData, n_sweeps, init=None):
+def _ruiz_equilibrate(qp: QPData, total: int, init=None, sweeps=None):
     """Modified Ruiz equilibration (OSQP scaling), per lane.
 
-    ``n_sweeps``: an int, or a (B,) tensor of per-lane sweep counts (lanes
-    past their count are frozen). Returns the scaled problem and (D, E, c)
-    with x = D x_s, y = E y_s / c.
+    ``total`` sweeps; ``sweeps``: None, or a (B,) tensor of per-lane sweep
+    counts, none above ``total`` (lanes past their count are frozen).
+    Returns the scaled problem and (D, E, c) with x = D x_s, y = E y_s / c.
     """
     P, q, A, l, u = qp
     Bsz, n = q.shape
@@ -128,10 +181,6 @@ def _ruiz_equilibrate(qp: QPData, n_sweeps, init=None):
         E = torch.ones((Bsz, m), dtype=dt, device=dev)
         c = torch.ones((Bsz,), dtype=dt, device=dev)
 
-    if isinstance(n_sweeps, int):
-        total, sweeps = n_sweeps, None
-    else:
-        total, sweeps = int(n_sweeps.max()), n_sweeps
     tracing.count("ruiz.lane_sweeps", total * Bsz)   # lanes swept, frozen too
     one = torch.ones((), dtype=dt, device=dev)
     for k in range(total):
@@ -270,16 +319,15 @@ class _Prologue(NamedTuple):
     ns_tol: float
 
 
-def _prologue(qp: QPData, cfg: SolverConfig, warm, fac) -> _Prologue:
+def _prologue(qp: QPData, cfg: SolverConfig, warm, fac,
+              sweeps: Optional[SweepCount] = None) -> _Prologue:
     dt, dev = qp.q.dtype, qp.q.device
     Bsz, n = qp.q.shape
     m = qp.l.shape[1]
     is_eq = torch.isfinite(qp.l) & torch.isfinite(qp.u) & (qp.u - qp.l < 1e-12)
 
     if fac is not None and cfg.scaling_iters > 0:
-        refresh = ~fac.valid
-        if cfg.scaling_refresh_every > 0:
-            refresh = refresh | (fac.age % cfg.scaling_refresh_every == 0)
+        refresh = refresh_lanes(cfg, fac)
         use_warm = fac.valid & ~refresh
         init = (_w(use_warm, fac.D.to(dt), torch.ones_like(qp.q)),
                 _w(use_warm, fac.E.to(dt), torch.ones_like(qp.l)),
@@ -288,7 +336,10 @@ def _prologue(qp: QPData, cfg: SolverConfig, warm, fac) -> _Prologue:
             refresh, torch.full_like(fac.age, cfg.scaling_iters),
             torch.full_like(fac.age, min(cfg.scaling_warm_iters,
                                          cfg.scaling_iters)))
-        qp_s, D, E, c = _ruiz_equilibrate(qp, n_sweeps, init=init)
+        total = (sweeps if sweeps is not None
+                 else SweepCount(cfg, fac)).total
+        qp_s, D, E, c = _ruiz_equilibrate(qp, total, init=init,
+                                          sweeps=n_sweeps)
     elif cfg.scaling_iters > 0:
         qp_s, D, E, c = _ruiz_equilibrate(qp, cfg.scaling_iters)
     else:
@@ -338,13 +389,13 @@ def use_kernel(cfg: SolverConfig, qp: QPData) -> bool:
 
 @tracing.traced("qp.prologue")
 def admm_inputs(qp: QPData, cfg: SolverConfig, warm=None, fac=None,
-                structure=None):
+                structure=None, sweeps: Optional[SweepCount] = None):
     """The kernel path's prologue: returns (prologue, Kinv1, ns_resid1),
     i.e. exactly what :func:`solve` hands to ``cuda_qp.admm_iterate``.
     With ``structure`` and ``cfg.kkt_structured`` the inverse is the
     structured build, squared once, then guarded by ``_ns_inverse`` (whose
     final squaring is the second one)."""
-    pro = _prologue(qp, cfg, warm, fac)
+    pro = _prologue(qp, cfg, warm, fac, sweeps)
     K1 = _build_K(pro.qp_s, pro.rho0, cfg.sigma)
     if structure is not None and cfg.kkt_structured:
         X_st = kkt_band.structured_kinv(K1, structure)
@@ -408,12 +459,14 @@ def fused_inputs(qp: QPData, cfg: SolverConfig, warm=None,
 
 @tracing.traced("qp.solve")
 def solve(qp: QPData, cfg: SolverConfig = SolverConfig(), warm=None,
-          fac: Optional[FactorCache] = None, structure=None) -> QPSolution:
+          fac: Optional[FactorCache] = None, structure=None,
+          sweeps: Optional[SweepCount] = None) -> QPSolution:
     """Solve a batch of QPs. ``warm``: (x, y) in original coordinates;
     ``fac``: the previous solve's :class:`FactorCache`; ``structure``: the
     FTOCP's ``kkt_band.BandStructure``, read by the structured KKT inverse
     when ``cfg.kkt_structured`` (which then takes precedence over the
-    fused-prologue kernel, as in the reference)."""
+    fused-prologue kernel, as in the reference); ``sweeps``: the Ruiz
+    count from ``fac``, made at the start of the step (else here)."""
     kernel = use_kernel(cfg, qp)
     if kernel:   # the kernels' iteration precision (ValueError if unknown)
         cuda_qp.iter_precision_code(cfg.pallas_iter_precision)
@@ -425,7 +478,7 @@ def solve(qp: QPData, cfg: SolverConfig = SolverConfig(), warm=None,
     sigma, alpha = cfg.sigma, cfg.alpha
     if kernel and cfg.pallas_fused_ns and not use_structured:
         with tracing.span("qp.prologue"):
-            pro = _prologue(qp, cfg, warm, fac)
+            pro = _prologue(qp, cfg, warm, fac, sweeps)
         r = cuda_qp_fused.admm_iterate_fused(**fused_args(pro, cfg))
         D, E, c = pro.D, pro.E, pro.c
         sol = _finish(orig, cfg, x_u=D * r.x, y_u=E * r.y / c[:, None],
@@ -436,7 +489,7 @@ def solve(qp: QPData, cfg: SolverConfig = SolverConfig(), warm=None,
         return sol._replace(ns_iters=r.ns_iters, warm=r.warm,
                             rescued=r.rescued)
     pro, Kinv1, ns_resid1 = admm_inputs(
-        qp, cfg, warm, fac, structure if use_structured else None)
+        qp, cfg, warm, fac, structure if use_structured else None, sweeps)
     qp_s, D, E, c = pro.qp_s, pro.D, pro.E, pro.c
     common = dict(is_eq=pro.is_eq, D=D, E=E, c=c, age=pro.age,
                   ns_tol=pro.ns_tol, keep_kinv=pro.keep_kinv)

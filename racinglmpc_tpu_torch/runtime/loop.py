@@ -3,11 +3,12 @@
 Per control step: the controller acts on the latest state, the plant
 advances one period, and (unless ``multi_lap``) a scenario is done once its
 new arc length exceeds the track length. Done scenarios are frozen by a
-mask; the trajectory excludes the crossing state, which is returned with
-its arc length reduced by one track length. ``done0``/``step0`` resume a
-lap in chunks: noise is drawn by the global step index, so a chunked run
-equals one long run. ``collect_fn`` archives a value of each step's new
-controller state (the reference's predicted-trajectory store).
+mask (a ``multi_lap`` run from a fresh start freezes nothing: none is
+ever done); the trajectory excludes the crossing state, which is returned
+with its arc length reduced by one track length. ``done0``/``step0``
+resume a lap in chunks: noise is drawn by the global step index, so a
+chunked run equals one long run. ``collect_fn`` archives a value of each
+step's new controller state (the reference's predicted-trajectory store).
 
 A controller is ``step(ctrl_state, x (B, 6), draws) -> (ctrl_state, u)``;
 ``noise(t)`` returns ``(controller draws, plant draws (B, 3))`` for global
@@ -109,6 +110,8 @@ def run_lap(controller_step, ctrl_state, plant: PlantState, *, trk: Track,
     table = table if table is not None else track_table(trk)
     done = (torch.zeros((B,), dtype=torch.bool, device=plant.x.device)
             if done0 is None else done0)
+    # multi-lap from a fresh start: no scenario is ever done, none frozen
+    freeze = not multi_lap or done0 is not None
     xs, us, xgs, masks, extras = [], [], [], [], []
     for t in range(step0, step0 + max_steps):
         tracing.at_step(t)
@@ -123,8 +126,11 @@ def run_lap(controller_step, ctrl_state, plant: PlantState, *, trk: Track,
             us.append(u)
             xgs.append(plant.x_glob)
             masks.append(~done)
-            ctrl_state = bwhere(done, ctrl_state, new_ctrl)
-            plant = bwhere(done, plant, new_plant)
+            if freeze:
+                ctrl_state = bwhere(done, ctrl_state, new_ctrl)
+                plant = bwhere(done, plant, new_plant)
+            else:
+                ctrl_state, plant = new_ctrl, new_plant
             if not multi_lap:
                 done = done | (new_plant.x[:, 4] > L)
 

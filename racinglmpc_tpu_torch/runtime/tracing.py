@@ -30,6 +30,15 @@ session is armed (else a null pointer, and the kernel counts nothing);
 the session zeroes it on entry and reads it (one synchronisation) on exit
 into :attr:`Record.counts`, under ``<name>.<field>``. Host counters
 (:func:`count`) land there too.
+
+**CUDA graphs.** A replay of the controller step's graph
+(``runtime/step_graph.py``) passes no wrapper: it adds to every
+:class:`LaunchCounter` (:func:`launch_counters`) and to the host counts
+what its capture launched and counted (a capture runs inside
+:func:`detached`, which keeps its spans and counts out of the session);
+:data:`graph_captures` and :data:`graph_replays` count the graphs, and
+the replay is one span, ``ctrl.graph``, so the step's inner spans are
+seen on the eager path alone. Device counters count inside the graph.
 """
 from __future__ import annotations
 
@@ -48,17 +57,30 @@ import torch
 _armed = False
 _rec: Optional["Record"] = None
 _ARMED_ONLY: Dict[str, "ScenarioCounter"] = {}
+_LAUNCH_COUNTERS: List["LaunchCounter"] = []
 
 
 class LaunchCounter:
-    """Launches of one kernel; its wrapper adds one per launch."""
+    """Launches of one kernel (or of the step's graphs); its wrapper adds
+    one per launch."""
 
     def __init__(self, name: str):
         self.name = name
         self.n = 0
+        _LAUNCH_COUNTERS.append(self)
 
     def reset(self) -> None:
         self.n = 0
+
+
+def launch_counters() -> List[LaunchCounter]:
+    """Every launch counter made in this process."""
+    return list(_LAUNCH_COUNTERS)
+
+
+# the controller step's CUDA graphs: captures made, replays run
+graph_captures = LaunchCounter("ctrl.graph.captures")
+graph_replays = LaunchCounter("ctrl.graph.replays")
 
 
 class ScenarioCounter:
@@ -245,6 +267,22 @@ def session(device=None) -> Iterator[Record]:
         for c in armed_only:
             for k, v in c.values().items():
                 rec.counts[f"{c.name}.{k}"] += v
+
+
+@contextlib.contextmanager
+def detached() -> Iterator[Optional[Record]]:
+    """While armed, the block's spans and host counts go to a record of
+    their own, yielded (the armed-only device counters stay armed); None
+    while disarmed."""
+    global _rec
+    if not _armed:
+        yield None
+        return
+    outer, _rec = _rec, Record()
+    try:
+        yield _rec
+    finally:
+        _rec = outer
 
 
 # ---- the overlay on a device trace -----------------------------------------

@@ -24,7 +24,7 @@ from racinglmpc_tpu_torch.ops import (cuda_build, cuda_ns, cuda_qp,
 from racinglmpc_tpu_torch.ops import qp as qp_mod
 from racinglmpc_tpu_torch.runtime import experiment as exp
 from racinglmpc_tpu_torch.runtime import (loop, main_path, rescue_replay,
-                                          stage_path, tracing)
+                                          stage_path, step_graph, tracing)
 from racinglmpc_tpu_torch.utils.config import SolverConfig, VehicleParams
 from racinglmpc_tpu_torch.utils.qp_cases import random_qps
 
@@ -279,6 +279,71 @@ def test_ltv_float64_controller_takes_the_plain_sysid(ltv_cell):
     for a, b in zip(ctrl.sysid(new), _ltv_sysid_plain(ctrl, new)):
         assert torch.equal(a, b)
     assert cuda_sysid.launches.n == 0
+
+
+def _launch_counts() -> dict:
+    return {c.name: c.n for c in tracing.launch_counters()
+            if not c.name.startswith("ctrl.graph")}
+
+
+def _delta(a: dict, b: dict) -> dict:
+    return {k: b[k] - a.get(k, 0) for k in b if b[k] != a.get(k, 0)}
+
+
+def test_ltv_graph_equals_the_eager_step_at_256_lanes():
+    """300 steps of the LTV cell's set-up at batch 256 in lockstep, the
+    step replayed as CUDA graphs against the same step run eagerly: every
+    output and state field equal bit for bit (the Ruiz count 10 on the
+    cold and refresh steps, 2 elsewhere), the launch counters advanced
+    alike, two captures, and what a step returned unchanged five steps
+    later."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from lmpc_bench import spec
+    from lmpc_bench.stages import ltv
+    s = ltv.setup(spec.cell("ltv_b256.pid_store"), "cuda")
+    ctrl = s.ctrl
+    assert ctrl.graphed(s.state0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1303)
+    caps, reps = tracing.graph_captures.n, tracing.graph_replays.n
+    sg = se = s.state0
+    pg = pe = s.plant0
+    dg, de, sweeps, held = {}, {}, [], {}
+    for t in range(300):
+        sweeps.append(qp_mod.SweepCount(ctrl.solver_cfg, sg.fac).total)
+        c0 = _launch_counts()
+        new_g, ug = ctrl(sg, pg.x)
+        c1 = _launch_counts()
+        new_e, ue = ctrl.step(se, pe.x)
+        c2 = _launch_counts()
+        for k, v in _delta(c0, c1).items():
+            dg[k] = dg.get(k, 0) + v
+        for k, v in _delta(c1, c2).items():
+            de[k] = de.get(k, 0) + v
+        lg = (ug,) + tuple(new_g._asdict().values())
+        le = (ue,) + tuple(new_e._asdict().values())
+        names = ("u",) + new_g._fields
+        for name, a, b in zip(names, lg, le):
+            for x, y in zip(step_graph.leaves(a), step_graph.leaves(b)):
+                assert x.dtype == y.dtype and torch.equal(x, y), (t, name)
+        if t % 50 == 7:
+            held[t] = (new_g, ug, step_graph.fresh((new_g, ug)))
+        for k in [k for k in held if k + 5 == t]:
+            out, u, copy = held.pop(k)
+            for x, y in zip(step_graph.leaves((out, u)),
+                            step_graph.leaves(copy)):
+                assert torch.equal(x, y), k
+        draws = torch.randn((256, 3), generator=gen, device="cuda")
+        pg = loop.plant_step(pg, ug, s.vp, s.trk, s.sim, draws, s.table)
+        pe = loop.plant_step(pe, ue, s.vp, s.trk, s.sim, draws, s.table)
+        sg, se = new_g, new_e
+    torch.cuda.synchronize()
+    assert not held
+    assert sweeps.count(10) >= 6 and sweeps.count(2) >= 280
+    assert dg == de and dg["fused_admm"] == 300 and dg["sysid"] == 300
+    assert tracing.graph_captures.n - caps == 2
+    assert tracing.graph_replays.n - reps == 298
 
 
 def test_rollout_with_batched_vehicle_params(setup):
