@@ -570,6 +570,44 @@ def rescue_counter_check(torch, cuda_qp, tracing, layout, args, kw, kr):
     return c
 
 
+def rescue_split_check(torch, cuda_qp, tracing, rescue_replay, args, kw,
+                       kr):
+    """B1's forced rescue on few lanes, where each rescued lane takes a
+    thread-block cluster: the first 3 lanes, then one more than each
+    cluster launch but the last takes. Each run counts its F lanes on
+    F x split CTAs, gives them the bits they get on one CTA each among all
+    B (``kr``), their flags and iteration counts equal the plain version's
+    on the same lanes, and the inverse in the workspace leaves
+    max|I - K2 X| (float64) within 50 ns_tol, the refreshed-inverse gate."""
+    n, m = args[0].shape[1], args[2].shape[1]
+    _, tiers = cuda_qp.rescue_plan_on_card(n, m)
+    runs = [(3, tiers[0][0])] + [(hi + 1, c) for (_, hi), (c, _) in
+                                 zip(tiers, tiers[1:])]
+    s, tol = kw["rescue_rho_scale"], kw["ns_tol"]
+    for F, split in runs:
+        a = rescue_replay.lanes(args, torch.arange(F, device=args[0].device))
+        ws = torch.zeros((F, 4, n, n), device=args[0].device)
+        with tracing.session() as rec:
+            k = cuda_qp.admm_iterate(*a, **kw, workspace=ws)
+        c = {key.split(".")[-1]: v for key, v in rec.counts.items()
+             if key.startswith("admm.rescue.")}
+        p = cuda_qp.admm_iterate_plain(*a, **kw)
+        same = all(bool(torch.equal(x, y[:F])) for x, y in zip(k, kr))
+        flags = bool((k[6] == p[6]).all()) and bool(k[6].all())
+        iters = bool((k[4] == p[4]).all())
+        P, A, rho = (t.double() for t in (a[0], a[2], a[6]))
+        eye = torch.eye(n, dtype=torch.float64, device=P.device)
+        K2 = P + kw["sigma"] * eye + s * A.transpose(1, 2) @ (
+            A * rho[:, :, None])
+        res = float((eye - K2 @ ws[:, 0].double()).abs().amax())
+        check(f"admm_rescue_split{split}_{F}_lanes",
+              c["lanes"] == F and c["ctas"] == F * split and same and flags
+              and iters and res < 50 * tol,
+              f"(counted {c}; bits of one CTA a lane {same}; flags, "
+              f"iteration counts as plain {flags}, {iters}; inverse "
+              f"max|I - K2 X| {res:.2e}, gate {50 * tol:.1e})")
+
+
 def product_classes(cuda_qp, args, kw):
     """B1's plain version at tolerance on one batch (``admm_iterate``'s
     arguments) with float32 products, with one class of products at a time
@@ -2268,6 +2306,8 @@ def main() -> int:
               f"({cuda_qp.streamed.value()}, expected {want})")
         rescue_counter_check(torch, cuda_qp, tracing, name, r_args, r_kw,
                              kr)
+    rescue_split_check(torch, cuda_qp, tracing, rescue_replay, r_args, r_kw,
+                       outs["resident"][1])
     k = cuda_qp.admm_iterate(*args, **kw)
     k2 = cuda_qp.admm_iterate(*args, **kw)
     check("admm_resident_same_bits_twice",

@@ -64,8 +64,9 @@
 //         B1's rescue): K, X, Y and R in the workspace (4 n^2 floats:
 //         at n = 200, 160 KB each), the whole n x n output in registers as
 //         8 x 8 cells, the two operands staged through shared memory in
-//         16-deep slabs by 4-byte cp.async from the warps that hold no
-//         cells, double buffered with one barrier a slab.
+//         16-deep slabs by cp.async from the warps that hold no cells (the
+//         left operand 4 bytes a copy, the right 16 or 8 where n and its
+//         alignment allow), double buffered with one barrier a slab.
 //     Every output of either core is one fmaf chain over k = 0..kd-1 in
 //     order (padded k terms are fmaf(0, 0, acc); the resident core adds
 //     the one such term the streamed core's 16-deep padding implies), as

@@ -129,8 +129,8 @@ static __host__ __device__ inline size_t ctx_floats(int n, int m) {
   return (size_t)7 * r4(n) + 8 * r4(m) + NT + 4 * (NT / 32);
 }
 
-// the product core's geometry at n (its outputs in 8 x 8 cells, one per
-// thread; see product() below)
+// the product core's geometry at n over a band of `rows` output rows (its
+// outputs in 8 x 8 cells, one per thread; see product() below)
 struct Geo {
   int cells;    // column cells (n / 8 rounded up): 8 cells columns
   int cr;       // row cells of a pass
@@ -138,17 +138,38 @@ struct Geo {
   int sa;       // row stride of a staged slab of the left operand (floats)
 };
 
-static __host__ __device__ inline Geo geo(int n) {
+static __host__ __device__ inline Geo geo(int n, int rows) {
   Geo g;
   g.cells = (n + 7) / 8;
+  const int rc = (rows + 7) / 8;
   const int per = (NT - 32) / g.cells;   // at least one producer warp
-  g.passes = (g.cells + per - 1) / per;
-  g.cr = (g.cells + g.passes - 1) / g.passes;
+  g.passes = (rc + per - 1) / per;
+  g.cr = (rc + g.passes - 1) / g.passes;
   // 8 cr floats padded to 4 mod 32: the transposing stores of a slab
   // (16 k-values of a row from neighbouring threads) hit distinct banks
   // two at a time
   g.sa = 8 * g.cr + (36 - (8 * g.cr) % 32) % 32;
   return g;
+}
+
+static __host__ __device__ inline Geo geo(int n) { return geo(n, n); }
+
+// B1's rescue prologue spread over a thread-block cluster: a lane's CTAs
+// (at most 8, the portable cluster size, one per 8-row cell of the output
+// at small n) each compute a band of whole 8-row cells of every product's
+// rows, as even as can be
+static __host__ __device__ inline int rescue_split(int n) {
+  const int cells = (n + 7) / 8;
+  return cells < 8 ? cells : 8;
+}
+
+// rows [*r0, *r1) of CTA `rank` of `c` over n rows
+static __host__ __device__ inline void rescue_band(int n, int c, int rank,
+                                                   int* r0, int* r1) {
+  const int cells = (n + 7) / 8;
+  const int a = 8 * (rank * cells / c), b = 8 * ((rank + 1) * cells / c);
+  *r0 = a < n ? a : n;
+  *r1 = b < n ? b : n;
 }
 
 // floats of the Newton-Schulz prologue's shared memory (B4, B1's rescue):
@@ -1103,6 +1124,23 @@ static __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                : "memory");
 }
 
+// 16 bytes (L2 only) and 8 bytes: both ends aligned to their size
+static __device__ __forceinline__ void cp_async16(float* dst,
+                                                  const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+static __device__ __forceinline__ void cp_async8(float* dst, const float* src,
+                                                 bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+
 static __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -1117,11 +1155,86 @@ static __device__ __forceinline__ float4 ld4(const float* p) {
 
 enum { OP_K = 0, OP_RESID = 1, OP_UPDATE = 2 };
 
-// C = epi(a . b) over the n x n outputs, k < kd:
+static __device__ __forceinline__ unsigned cluster_reg_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+static __device__ __forceinline__ unsigned cluster_reg_size() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+static __device__ __forceinline__ unsigned cluster_reg_id() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of the cluster: what each wrote before (global or shared
+// memory) is seen by every thread after
+static __device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float at p in the shared memory of the cluster's CTA `rank`
+static __device__ __forceinline__ float cluster_ld(const float* p,
+                                                  unsigned rank) {
+  uint32_t a;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// The Newton-Schulz prologue's functions below take a CTA's share of each
+// product from the cluster it runs in: the whole matrix outside a cluster
+// (B4, and B1's rescue at one CTA a lane), on a cluster of c CTAs (B1's
+// rescue) the rows [*r0, *r1) of rescue_band (returns c).
+static __device__ __forceinline__ int cta_band(int n, int* r0, int* r1) {
+  const int c = (int)cluster_reg_size();
+  rescue_band(n, c, (int)cluster_reg_rank(), r0, r1);
+  return c;
+}
+
+// after a band's product: on a cluster, a barrier so that the next product
+// of every CTA reads the whole output (one CTA: the product's own closing
+// barrier does)
+static __device__ __forceinline__ void band_sync() {
+  if (cluster_reg_size() > 1) cluster_sync();
+}
+
+// max|R| of the whole matrix from each CTA's band max mx (nanmax: any
+// order gives the same value), behind the barrier that completes R; red:
+// the block reductions' scratch, whose float 2 NT / 32 (past
+// block_maxsum's) carries the band's max to the cluster
+static __device__ __forceinline__ float band_max(float mx, float* red) {
+  const int c = (int)cluster_reg_size();
+  if (c == 1) return mx;
+  float* slot = red + 2 * (NT / 32);
+  if (threadIdx.x == 0) *slot = mx;
+  cluster_sync();
+  float a = cluster_ld(slot, 0);
+  for (int r = 1; r < c; ++r) a = nanmax(a, cluster_ld(slot, r));
+  return a;
+}
+
+// C = epi(a . b) over the n x n outputs (the rows of the CTA's band,
+// cta_band), k < kd:
 //   OP_K:      a(i,k) = L[k n + i], b(k,j) = Rm[k n + j] * rho[k],
 //              C = (acc * s + E1) + (i == j ? sigma : 0)     (E1 = P)
 //   OP_RESID:  a(i,k) = L[i n + k], b(k,j) = Rm[k n + j],
-//              C = (i == j) - acc; returns max|C| (block-uniform)
+//              C = (i == j) - acc; returns the band's max|C|
+//              (block-uniform)
 //   OP_UPDATE: the same operands, C = E1 + acc                (E1 = X)
 // stage: prologue_floats(n) of shared memory; clk (phase builds): B4's
 // clocks (FPH_*), or nullptr.
@@ -1130,7 +1243,9 @@ static __device__ float product(int n, int kd, const float* L,
                                 const float* Rm, const float* rho, float s,
                                 const float* E1, float sigma, float* C,
                                 float* stage, float* red, long long* clk) {
-  const Geo g = geo(n);
+  int rbeg, rend;
+  cta_band(n, &rbeg, &rend);
+  const Geo g = geo(n, rend - rbeg);
   const int tid = threadIdx.x, np = 8 * g.cells, mb = 8 * g.cr;
   const int busy = g.cr * g.cells, p0 = (busy + 31) & ~31;
   const int nslab = (kd + PK - 1) / PK;
@@ -1139,10 +1254,15 @@ static __device__ float product(int n, int kd, const float* L,
   TSTART
   if (tid >= p0) {
     // producers: slab sl into buffer sl & 1, each thread every nprod-th
-    // element (stepping, no division per element)
+    // element (stepping, no division per element); the right operand's
+    // rows in copies of vec floats where n and Rm allow
     const int pt = tid - p0, nprod = NT - p0;
+    const uintptr_t ra = reinterpret_cast<uintptr_t>(Rm);
+    const int vec = n % 4 == 0 && (ra & 15) == 0  ? 4
+                    : n % 2 == 0 && (ra & 7) == 0 ? 2
+                                                  : 1;
     for (int pass = 0; pass < g.passes; ++pass) {
-      const int r0 = pass * mb;
+      const int r0 = rbeg + pass * mb;
       __syncthreads();   // the last product's outputs are written
       for (int sl = 0; sl <= nslab; ++sl) {
         if (sl > 0) {
@@ -1158,7 +1278,7 @@ static __device__ float product(int n, int kd, const float* L,
           int kk = pt / mb, i = pt % mb;
           for (int e = pt; e < PK * mb; e += nprod) {
             const int row = r0 + i, k = k0 + kk;
-            const bool ok = row < n && k < kd;
+            const bool ok = row < rend && k < kd;
             cp_async4(as + kk * g.sa + i, ok ? L + (size_t)k * n + row : L,
                       ok);
             for (i += nprod; i >= mb; i -= mb) ++kk;
@@ -1166,17 +1286,29 @@ static __device__ float product(int n, int kd, const float* L,
         } else {            // 16 k-values of a row, transposed
           for (int e = pt; e < PK * mb; e += nprod) {
             const int i = e / PK, kk = e % PK, row = r0 + i, k = k0 + kk;
-            const bool ok = row < n && k < kd;
+            const bool ok = row < rend && k < kd;
             cp_async4(as + kk * g.sa + i, ok ? L + (size_t)row * n + k : L,
                       ok);
           }
         }
-        int kk = pt / np, j = pt % np;
-        for (int e = pt; e < PK * np; e += nprod) {
-          const int k = k0 + kk;
-          const bool ok = j < n && k < kd;
-          cp_async4(bs + e, ok ? Rm + (size_t)k * n + j : Rm, ok);
-          for (j += nprod; j >= np; j -= np) ++kk;
+        if (vec > 1) {   // vec floats a copy: n and np are multiples
+          for (int e = vec * pt; e < PK * np; e += vec * nprod) {
+            const int kk = e / np, j = e - kk * np, k = k0 + kk;
+            const bool ok = j < n && k < kd;
+            const float* src = ok ? Rm + (size_t)k * n + j : Rm;
+            if (vec == 4)
+              cp_async16(bs + e, src, ok);
+            else
+              cp_async8(bs + e, src, ok);
+          }
+        } else {
+          int kk = pt / np, j = pt % np;
+          for (int e = pt; e < PK * np; e += nprod) {
+            const int k = k0 + kk;
+            const bool ok = j < n && k < kd;
+            cp_async4(bs + e, ok ? Rm + (size_t)k * n + j : Rm, ok);
+            for (j += nprod; j >= np; j -= np) ++kk;
+          }
         }
         cp_async_commit();
         TMARK(clk, FPH_P_ISSUE, tid == p0)
@@ -1187,7 +1319,7 @@ static __device__ float product(int n, int kd, const float* L,
     const int ci = tid / g.cells, cj = tid % g.cells;
     const bool act = tid < busy;
     for (int pass = 0; pass < g.passes; ++pass) {
-      const int r0 = pass * mb;
+      const int r0 = rbeg + pass * mb;
       __syncthreads();
       float acc[8][8];
 #pragma unroll
@@ -1231,7 +1363,7 @@ static __device__ float product(int n, int kd, const float* L,
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
         const int i = r0 + (r < 4 ? 4 * ci + r : 4 * g.cr + 4 * ci + r - 4);
-        if (i >= n) continue;
+        if (i >= rend) continue;
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
           const int j = q < 4 ? 4 * cj + q : 4 * g.cells + 4 * cj + q - 4;
@@ -1286,13 +1418,16 @@ static __device__ float frob_sq(int n, const float* R, float* red) {
   return frob_sq(n, R, red, n);
 }
 
-// K = (A' (rho A)) s + P + sigma I, then the Jacobi diagonal
-// dg = 1 / max(diag K, 1e-12); returns max(|I - K diag(dg)|_F, 1)
+// K = (A' (rho A)) s + P + sigma I (the band's rows), then the Jacobi
+// diagonal dg = 1 / max(diag K, 1e-12); returns max(|I - K diag(dg)|_F,
+// 1). The diagonal and the Frobenius sum are each CTA's own, over the
+// whole K in one thread order, so every CTA of a cluster holds the same.
 static __device__ float k_jacobi(const QPParams& p, Ctx& c, const float* P,
                                  const float* A, float s, float* K, float* dg,
                                  float* stage, long long* clk) {
   const int n = p.n, m = p.m, tid = threadIdx.x;
   product<OP_K>(n, m, A, A, c.rho, s, P, p.sigma, K, stage, c.red, clk);
+  band_sync();
   for (int j = tid; j < n; j += NT) dg[j] = 1.f / fmaxf(K[(size_t)j * n + j], 1e-12f);
   __syncthreads();
   float sumsq = 0.f, dummy = 0.f;
@@ -1305,20 +1440,25 @@ static __device__ float k_jacobi(const QPParams& p, Ctx& c, const float* P,
   return fmaxf(sqrtf(sumsq), 1.f);
 }
 
-// X = Jacobi init diag(dg) / max(cj, 1)
+// X = Jacobi init diag(dg) / max(cj, 1), the band's rows
 static __device__ void write_jacobi(int n, const float* dg, float cjm,
                                     float* X) {
-  for (size_t e = threadIdx.x; e < (size_t)n * n; e += NT) {
+  int r0, r1;
+  cta_band(n, &r0, &r1);
+  for (size_t e = (size_t)r0 * n + threadIdx.x; e < (size_t)r1 * n;
+       e += NT) {
     const int i = (int)(e / n), j = (int)(e % n);
     X[e] = i == j ? dg[i] / cjm : 0.f;
   }
   __syncthreads();
+  band_sync();
 }
 
 // Newton-Schulz passes X <- X + X (I - K X) from r = inf while r > tol and
 // it < max; the 128-pad block is the scalar xp. Returns the last residual
 // and the iterations in *iters; X / Y are swapped so that X holds the
-// result. clk (phase builds): B4's clocks, or nullptr.
+// result. clk (phase builds): B4's clocks, or nullptr. On a cluster each
+// CTA writes its band of R and of the update, and all take the same r.
 static __device__ float ns_run(const QPParams& p, int n, const float* K,
                                float*& X, float*& Y, float* R, float& xp,
                                float* stage, float* red, int* iters,
@@ -1329,9 +1469,11 @@ static __device__ float ns_run(const QPParams& p, int n, const float* K,
   while (r > p.ns_tol && it < p.ns_max_iters) {
     float mx = product<OP_RESID>(n, n, K, X, nullptr, 1.f, nullptr, 0.f, R,
                                  stage, red, clk);
+    mx = band_max(mx, red);
     TMARK(clk, FPH_NS_RESID, threadIdx.x == 0)
     if (p.n_pad) mx = nanmax(mx, fabsf(1.f - xp));
     product<OP_UPDATE>(n, n, X, R, nullptr, 1.f, X, 0.f, Y, stage, red, clk);
+    band_sync();
     TMARK(clk, FPH_NS_UPDATE, threadIdx.x == 0)
     float* t = X; X = Y; Y = t;
     r = mx;

@@ -18,12 +18,15 @@ else Jacobi; restart pass when bad) and runs up to ``rescue_max_iter``
 more iterations with a primal-only exit.
 
 The CUDA version (``csrc/cuda_qp.cu``) is two launches: the main loop, one
-CTA per scenario (per-scenario early exit), then the rescue, one CTA per
-scenario that returns at once unless its scenario needs the rescue: a
-prologue launch builds K2 and its Newton-Schulz inverse on B4's product
-core (the whole n x n output in registers, 8 x 8 outputs a thread), with
-the matrices in a global-memory workspace, then an iteration launch runs
-the rescue's chunks.
+CTA per scenario (per-scenario early exit), then the rescue over the
+scenarios that need it. Its prologue builds K2 and its Newton-Schulz
+inverse on B4's product core (8 x 8 outputs a thread), with the matrices
+in a global-memory workspace: a rescued lane on a thread-block cluster,
+each CTA a band of every product's rows (:func:`rescue_band`), at the
+largest split of :func:`rescue_splits` whose clusters the card holds as
+many of as there are rescued lanes (:func:`rescue_plan_on_card`), else
+one CTA a lane; then an iteration launch, one CTA per scenario, runs the
+rescue's chunks. Every split gives the same bits.
 
 Both launches run the ADMM core in one of two layouts (:func:`smem_plan`,
 :func:`choose_layout`). **Resident**: each CTA copies its Kinv into shared
@@ -80,9 +83,12 @@ layout_launches = {"resident": tracing.LaunchCounter("admm_resident"),
                    "stream": tracing.LaunchCounter("admm_stream")}
 streamed = tracing.ScenarioCounter("admm_streamed")
 # the rescue prologue's work while a tracing session is armed: rescued
-# lanes, their Newton-Schulz iterations (both passes) and warm tests run
+# lanes, their Newton-Schulz iterations (both passes), warm tests run, and
+# (the kernel alone) the CTAs that worked on them: ctas / lanes is the
+# split that took effect
 rescue_work = tracing.ScenarioCounter(
-    "admm.rescue", ("lanes", "ns_iters", "warm_tests"), armed_only=True)
+    "admm.rescue", ("lanes", "ns_iters", "warm_tests", "ctas"),
+    armed_only=True)
 LAYOUTS = ("resident", "stream")
 ITER_PRECISIONS = ("highest", "bf16x3", "default")
 # launches of the main kernel's instantiation at each iteration precision
@@ -114,20 +120,54 @@ def ctx_floats(n: int, m: int) -> int:
 
 
 class Geo(NamedTuple):
-    """The Newton-Schulz product core at n (qp_common.cuh:geo; B4 and the
-    rescue): 8 x 8 output cells, one per thread."""
+    """The Newton-Schulz product core at n over a band of ``rows`` output
+    rows, n by default (qp_common.cuh:geo; B4 and the rescue): 8 x 8
+    output cells, one per thread."""
     cells: int    # column cells, ceil(n / 8)
     cr: int       # row cells of a pass
     passes: int   # passes over the rows (one up to n = 168)
     sa: int       # row stride of a staged slab of the left operand
 
 
-def geo(n: int) -> Geo:
+def geo(n: int, rows: int = None) -> Geo:
     cells = -(-n // 8)
+    rc = -(-(n if rows is None else rows) // 8)
     per = (_NT - 32) // cells     # at least one producer warp
-    passes = -(-cells // per)
-    cr = -(-cells // passes)
+    passes = -(-rc // per)
+    cr = -(-rc // passes)
     return Geo(cells, cr, passes, 8 * cr + (36 - (8 * cr) % 32) % 32)
+
+
+def rescue_split(n: int) -> int:
+    """CTAs of a rescued lane's cluster (qp_common.cuh:rescue_split): one
+    per 8-row cell of the output, at most 8, the portable cluster size."""
+    return min(8, -(-n // 8))
+
+
+def rescue_splits(n: int) -> Tuple[int, ...]:
+    """The splits of the rescue prologue's cluster launches at n, largest
+    first: :func:`rescue_split`, halved while at least 2 (at most 3)."""
+    out, c = [], rescue_split(n)
+    while c >= 2 and len(out) < 3:
+        out.append(c)
+        c //= 2
+    return tuple(out)
+
+
+def rescue_band(n: int, c: int, rank: int) -> Tuple[int, int]:
+    """Rows [r0, r1) of the products that CTA ``rank`` of a lane's ``c``
+    computes (qp_common.cuh:rescue_band): whole 8-row cells, as even as
+    can be."""
+    cells = -(-n // 8)
+    return min(n, 8 * (rank * cells // c)), min(n, 8 * ((rank + 1) * cells
+                                                        // c))
+
+
+def rescue_smem(n: int, m: int) -> int:
+    """Dynamic shared memory of a rescue prologue CTA (bytes,
+    qp_common.cuh:prologue_smem): the context and the product core's slabs
+    and diagonal, at any band."""
+    return 4 * (ctx_floats(n, m) + prologue_floats(n))
 
 
 def prologue_floats(n: int) -> int:
@@ -548,6 +588,11 @@ def _launchers(lib: ctypes.CDLL):
         rescue=cuda_build.bind(lib, "rl_admm_rescue",
                                [_Params] + [ctypes.c_void_p] * 14 + tail),
         ctas=cuda_build.bind(lib, "rl_admm_ctas_per_sm", [ctypes.c_int] * 5),
+        rescue_plan=cuda_build.bind(lib, "rl_rescue_plan",
+                                    [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+        rescue_band=cuda_build.bind(lib, "rl_rescue_band",
+                                    [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                                    None),
         smem=cuda_build.bind(lib, "rl_admm_smem_bytes", [ctypes.c_int] * 4,
                              ctypes.c_longlong))
 
@@ -565,6 +610,28 @@ def launch_rescue(p: _Params, P, Kinv, A, nvecs, vecs, c_inv, kpad, x, z, y,
         rescue_work.ptr(P.device), int(layout == "resident"), P.shape[0],
         cuda_build.stream_ptr())
     cuda_build.check(err)
+
+
+def rescue_plan_on_card(n: int, m: int) -> Tuple[int, tuple]:
+    """(dynamic shared memory of a CTA in bytes, ((split, hi), ...)) of the
+    rescue prologue at (n, m), as the kernel source and the card's
+    occupancy calculator give them: each cluster launch, largest split
+    first, takes the rescued lanes F in (the last launch's hi, hi], a
+    cluster of ``split`` CTAs each, hi the clusters the card holds at once;
+    one CTA a lane takes more."""
+    out = (ctypes.c_longlong * 7)()
+    cuda_build.check(_launchers(cuda_build.library())["rescue_plan"](
+        n, m, out))
+    tiers = tuple((int(out[1 + 2 * t]), int(out[2 + 2 * t]))
+                  for t in range(3) if out[1 + 2 * t] > 0)
+    return int(out[0]), tiers
+
+
+def rescue_band_on_card(n: int, c: int, rank: int) -> Tuple[int, int]:
+    """:func:`rescue_band` as the kernel source computes it."""
+    out = (ctypes.c_int * 2)()
+    _launchers(cuda_build.library())["rescue_band"](n, c, rank, out)
+    return int(out[0]), int(out[1])
 
 
 def pick_layout(n: int, m: int, layout) -> Layout:

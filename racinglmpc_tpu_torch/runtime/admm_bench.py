@@ -47,6 +47,17 @@ epilogues, and a producer's issuing and waiting. On the resident core
 the barrier after each, and the producer is the thread that issues the
 bulk copies: its issue and its time between them.
 
+``--rescue-lanes F1,F2,...`` with ``--load`` times B1's rescue prologue
+alone on the saved forced rescue (every lane rescued) cut to F lanes (the
+first F, cycled past the batch): one JSON line per F with its device time
+per call (``torch.profiler``, every ``admm_rescue_prologue`` launch) and,
+where the package counts them, its Newton-Schulz iterations and the CTAs
+that worked on the lanes; with ``--phases`` in place of ``--load`` (a
+``-DQP_PHASES`` build), the SM cycles of the first CTA that works on lane
+0 in the prologue's phases (B4's: K build, warm test, the products of
+the Newton-Schulz iterations, and over every product its cell thread's
+and producer's waits).
+
 ``--iter-precision`` (``highest``, the default, ``bf16x3`` or ``default``:
 the reference's ``pallas_iter_precision``) runs ``--load`` and
 ``--phases`` with the ADMM loop's products at that precision, on the same
@@ -191,6 +202,65 @@ def load(path: str, iter_precision: str = "highest") -> None:
                 package=cuda_qp.__file__, card=card)), flush=True)
 
 
+def _rescue_sets(path: str, counts):
+    """(F, keyword arguments of ``admm_iterate``) of the saved forced rescue
+    cut to each count of lanes F in ``counts`` (the first F, cycled past
+    the batch)."""
+    kw = torch.load(path)["rescue"]
+    kw = {k: v.cuda() if torch.is_tensor(v) else v for k, v in kw.items()}
+    B = kw["P"].shape[0]
+    for F in counts:
+        idx = torch.arange(F, device="cuda") % B
+        yield F, {k: v[idx].contiguous() if torch.is_tensor(v)
+                  and v.dim() > 0 and v.shape[0] == B else v
+                  for k, v in kw.items()}
+
+
+def rescue_lanes(path: str, counts) -> None:
+    """B1's rescue prologue on the saved forced rescue cut to each count of
+    lanes in ``counts`` (see the module's docstring)."""
+    from racinglmpc_tpu_torch.runtime import kernel_bench, tracing
+
+    card = _card()
+    for F, kf in _rescue_sets(path, counts):
+
+        def fn():
+            return cuda_qp.admm_iterate(**kf)
+
+        with tracing.session() as rec:
+            out = fn()
+            torch.cuda.synchronize()
+        work = {k.split(".")[-1]: v for k, v in rec.counts.items()
+                if k.startswith("admm.rescue.")}
+        print(json.dumps(dict(
+            config="rescue", lanes=F, rescued=int(out[6].sum()),
+            prologue_device_ms=kernel_bench.device_ms(
+                fn, ("admm_rescue_prologue",), launches=3),
+            rescue_device_ms=kernel_bench.device_ms(
+                fn, ("admm_rescue<",), launches=3),
+            work=work, package=cuda_qp.__file__, card=card)), flush=True)
+
+
+def rescue_phases(path: str, counts) -> None:
+    """The rescue prologue's phase clocks on the saved forced rescue cut to
+    each count of lanes in ``counts`` (see the module's docstring)."""
+    cuda_build.DEFINES = ("QP_PHASES",)
+    f = cuda_build.bind(cuda_build.library(), "rl_rescue_phases",
+                        [ctypes.c_void_p, ctypes.c_int])
+    buf = (ctypes.c_longlong * len(FUSED_PHASES))()
+    for F, kf in _rescue_sets(path, counts):
+        cuda_qp.admm_iterate(**kf)
+        torch.cuda.synchronize()
+        cuda_build.check(f(buf, 1))
+        cuda_qp.admm_iterate(**kf)
+        torch.cuda.synchronize()
+        cuda_build.check(f(buf, 0))
+        cyc = dict(zip(FUSED_PHASES, list(buf)))
+        print(json.dumps(dict(
+            config="rescue", lanes=F, cycles=cyc,
+            sm_clock=_card("clocks.sm"), card=_card())), flush=True)
+
+
 def save_b4(path: str) -> None:
     """B4's inputs: the LTV (cold) and LTI (warm) stages' next solves, the
     main path's LMPC FTOCPs (n = 200) and 64 random QPs of n = 30, cold and
@@ -333,11 +403,18 @@ if __name__ == "__main__":
     ap.add_argument("--iter-precision", default="highest",
                     choices=("highest", "bf16x3", "default"),
                     help="the ADMM loop's products in --load and --phases")
+    ap.add_argument("--rescue-lanes", help="with --load or --phases (B1): "
+                    "the rescue prologue on the forced rescue cut to these "
+                    "counts of lanes (comma-separated)")
     a = ap.parse_args()
     b4 = a.kernel == "b4"
     if a.save:
         (save_b4 if b4 else save)(a.save)
-    if a.load:
+    if a.load and a.rescue_lanes:
+        rescue_lanes(a.load, [int(f) for f in a.rescue_lanes.split(",")])
+    elif a.load:
         (load_b4 if b4 else load)(a.load, a.iter_precision)
-    if a.phases:
+    if a.phases and a.rescue_lanes:
+        rescue_phases(a.phases, [int(f) for f in a.rescue_lanes.split(",")])
+    elif a.phases:
         (phases_b4 if b4 else phases)(a.phases, a.iter_precision)

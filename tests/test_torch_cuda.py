@@ -408,10 +408,129 @@ def test_rescue_counter_counts_the_rescued_lanes(setup, layout):
     lanes = int(off[6].sum())
     c = rec.counts
     assert lanes == B and c["admm.rescue.lanes"] == lanes
-    assert rec_plain.counts["admm.rescue.lanes"] == lanes
+    for k in ("lanes", "ns_iters", "warm_tests"):
+        assert c[f"admm.rescue.{k}"] == rec_plain.counts[f"admm.rescue.{k}"]
     assert lanes <= c["admm.rescue.ns_iters"] <= 2 * lanes * kw[
         "ns_max_iters"]
     assert c["admm.rescue.warm_tests"] == 0
+    assert lanes <= c["admm.rescue.ctas"] <= 8 * lanes
+
+
+def _rescue_split_runs(run, args, n, m):
+    """``run(args)`` (a kernel call) on lanes of ``args`` (FTOCPs of n
+    variables and m constraints) that rescue every lane, cycled from its
+    first: 3 lanes, then one more than each cluster launch but the last
+    takes, then 256; armed, each run's lanes take a cluster of the split
+    its count calls for each, 256 one CTA each. Returns each run's output
+    and the warm tests it counted."""
+    _, tiers = cuda_qp.rescue_plan_on_card(n, m)
+    assert tuple(c for c, _ in tiers) == cuda_qp.rescue_splits(n) == (8, 4,
+                                                                       2)
+    assert 3 <= tiers[0][1] and tiers[-1][1] < 256
+    counts = [(3, tiers[0][0])] + [(hi + 1, c) for (_, hi), (c, _) in
+                                   zip(tiers, tiers[1:])] + [(256, 1)]
+    B0 = args[0].shape[0]
+    outs, warm = [], []
+    for F, split in counts:
+        with tracing.session() as rec:
+            out = run(rescue_replay.lanes(
+                args, torch.arange(F, device="cuda") % B0))
+        assert rec.counts["admm.rescue.lanes"] == F
+        assert rec.counts["admm.rescue.ctas"] == F * split
+        outs.append(out)
+        warm.append(rec.counts["admm.rescue.warm_tests"])
+    return outs, warm
+
+
+def test_rescue_split_keeps_the_bits_main_path(setup):
+    """B1's rescue prologue on the main path's FTOCPs (n = 200), every lane
+    rescued: 3 lanes, each on a cluster of 8 CTAs, give the bits they get
+    among more lanes on clusters of 4 and of 2, and as 3 of 256 lanes on
+    one CTA each (every output of ``admm_iterate`` and the rescue's
+    inverse in the workspace); the inverse lies within the
+    refreshed-inverse gate, 50 ns_tol of max|I - K2 X|, as the plain
+    version's does."""
+    cfg, trk, st, x0 = setup
+    ctrl = lmpc_mod.make_lmpc(cfg.lmpc, trk, cfg.solver, 0.1)
+    qp = ctrl.build_qp(st, x0)[0]
+    args, kw = rescue_replay.admm_args(
+        qp, rescue_replay.forced_rescue(cfg.solver), None, None)
+    n = args[0].shape[1]
+
+    def run(a):
+        ws = torch.zeros((a[0].shape[0], 4, n, n), device="cuda")
+        return cuda_qp.admm_iterate(*a, **kw, workspace=ws), ws[:, 0]
+
+    ((few, wf), *rest), _ = _rescue_split_runs(run, args, n,
+                                               args[2].shape[1])
+    assert bool(few[6].all())
+    for many, wm in rest:
+        assert bool(many[6].all())
+        for a, b in zip(few, many):
+            assert torch.equal(a, b[:3])
+        assert torch.equal(wf, wm[:3])
+    P, A, Kinv, rho = (t[:3] for t in (args[0], args[2], args[1], args[6]))
+    s = kw["rescue_rho_scale"]
+    X = cuda_qp._rescue_kinv(P, A, Kinv, torch.zeros(3, device="cuda"), rho,
+                             kw["sigma"], s, kw["ns_tol"], kw["ns_max_iters"])
+    eye = torch.eye(n, dtype=torch.float64, device="cuda")
+    K2 = (P.double() + kw["sigma"] * eye + s * A.double().transpose(1, 2)
+          @ (A.double() * rho.double()[:, :, None]))
+    for inv in (wf, X):
+        assert float((eye - K2 @ inv.double()).abs().amax()) < 50 * kw[
+            "ns_tol"]
+
+
+@pytest.mark.parametrize("scale", [None, 1.0])
+def test_rescue_split_keeps_the_bits_ltv_stage(stages, scale):
+    """B4's launch of B1's rescue on the LTV stage's FTOCPs (n = 146),
+    every lane rescued: 3 lanes on clusters of 8 give every output of
+    ``admm_iterate_fused`` that they give among more lanes on clusters of
+    4 and of 2, and as 3 of 256 lanes on one CTA each. At the solver's
+    rescue rho scale the pad block rules the warm test out; at a scale of
+    1 every lane runs it (B4's refreshed inverse carries its pad block as
+    the scalar 1, which over s = 1 leaves that block no residual), so each
+    cluster's CTAs decide the warm start together from one residual that
+    none of them overwrites before all have read it."""
+    cfg, trk, res = stages
+    f = stage_path.stage_ftocps(res, cfg, "ltv", trk)
+    forced = dataclasses.replace(cfg.solver, rescue_trigger=0.0)
+    if scale is not None:
+        forced = dataclasses.replace(forced, rescue_rho_scale=scale)
+    kw = qp_mod.fused_inputs(f.qp, forced, f.warm, f.fac)
+    args = [kw.pop(n) for n in FUSED_NAMES]
+    n = args[0].shape[1]
+    assert n == 146 and kw["rescue_max_iter"] > 0
+    (few, *rest), warm = _rescue_split_runs(
+        lambda a: cuda_qp_fused.admm_iterate_fused(*a, **kw), args, n,
+        args[1].shape[1])
+    F = [3] + [len(m.rescued) for m in rest]
+    assert warm == (F if scale == 1.0 else [0] * len(F))
+    assert bool(few.rescued.all())
+    for many in rest:
+        assert bool(many.rescued.all())
+        for a, b in zip(few, many):
+            assert torch.equal(a, b[:3])
+
+
+def test_rescue_plan_matches_kernel_source():
+    """The rescue prologue's splits, bands and shared memory as the kernel
+    source computes them equal :func:`cuda_qp.rescue_splits`,
+    :func:`cuda_qp.rescue_band` and :func:`cuda_qp.rescue_smem`; each
+    cluster launch takes more rescued lanes than the one before, and all
+    of them fewer than the forced rescue's 256."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    for n, m in ((1, 1), (8, 6), (9, 6), (30, 26), (146, 202), (200, 257)):
+        smem, tiers = cuda_qp.rescue_plan_on_card(n, m)
+        assert smem == cuda_qp.rescue_smem(n, m)
+        assert tuple(c for c, _ in tiers) == cuda_qp.rescue_splits(n)
+        his = [hi for _, hi in tiers]
+        assert his == sorted(set(his)) and all(0 < h < 256 for h in his)
+        for c in cuda_qp.rescue_splits(n) + (1,):
+            for rank in range(c):
+                assert cuda_qp.rescue_band_on_card(n, c, rank) == \
+                    cuda_qp.rescue_band(n, c, rank)
 
 
 @pytest.mark.parametrize("prec", ["bf16x3", "default"])

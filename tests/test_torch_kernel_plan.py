@@ -236,6 +236,57 @@ def test_fused_product_cells_cover_each_output_once(n):
     assert bool((seen == 1).all())
 
 
+@pytest.mark.parametrize("n, m", [(1, 1), (2, 1), (8, 6), (9, 6), (30, 26),
+                                  (146, 202), (168, 230), (200, 257)])
+def test_rescue_bands_cover_each_output_once(n, m):
+    """B1's rescue prologue on a cluster (qp_common.cuh:rescue_split,
+    rescue_band): at most 8 CTAs a lane, one per 8-row cell below that,
+    then half as many while at least 2; at each of these splits and on one
+    CTA the bands are whole cells (the last ends at n) that cover rows
+    0..n once, and within each band the product core's cells cover every
+    output once; a band's slabs fit the whole matrix's, and the CTA's
+    shared memory one SM."""
+    split = cuda_qp.rescue_split(n)
+    assert 1 <= split <= 8 and split == min(8, -(-n // 8))
+    splits = cuda_qp.rescue_splits(n)
+    assert splits == tuple(c for c in (split, split // 2, split // 4)
+                           if c >= 2)
+    for c in splits + (1,):
+        _bands_cover_each_output_once(n, c)
+    assert cuda_qp.rescue_smem(n, m) == 4 * (cuda_qp.ctx_floats(n, m)
+                                             + cuda_qp.prologue_floats(n))
+    assert cuda_qp.rescue_smem(n, m) + cuda_build.SMEM_RESERVED <= \
+        cuda_build.SMEM_PER_CTA
+
+
+def _bands_cover_each_output_once(n, c):
+    full = cuda_qp.geo(n)
+    seen = torch.zeros((n, n), dtype=torch.int32)
+    r_prev = 0
+    for rank in range(c):
+        r0, r1 = cuda_qp.rescue_band(n, c, rank)
+        assert r0 == r_prev and r1 > r0 and r0 % 8 == 0
+        assert r1 % 8 == 0 or r1 == n
+        r_prev = r1
+        g = cuda_qp.geo(n, r1 - r0)
+        assert g.cells == full.cells and g.sa <= full.sa and g.sa % 32 == 4
+        assert -(-g.cr * g.cells // 32) <= 15
+        for pas in range(g.passes):
+            for t in range(g.cr * g.cells):
+                ci, cj = divmod(t, g.cells)
+                rows = [r0 + pas * 8 * g.cr + 4 * ci + r for r in range(4)]
+                rows += [r0 + pas * 8 * g.cr + 4 * g.cr + 4 * ci + r
+                         for r in range(4)]
+                cols = [4 * cj + q for q in range(4)] + [
+                    4 * g.cells + 4 * cj + q for q in range(4)]
+                for i in rows:
+                    for j in cols:
+                        if i < r1 and j < n:
+                            seen[i, j] += 1
+    assert r_prev == n
+    assert bool((seen == 1).all())
+
+
 SASS = """
         /*0000*/                   LDC R1, c[0x0][0x28] ;
 .L_x_1:
